@@ -1,10 +1,13 @@
 """mh_tpu_torch — the Metropolis-Hastings scene-layout engine in PyTorch + CUDA.
 
 The port of ``mh_tpu`` to one NVIDIA Hopper GPU, with the same public
-names for what it has so far: the scene model, the seven-term objective
-in PARITY and FIXED modes, and ``suggest_layouts`` over the fused MH chain
-kernel (``kernels/csrc/fused_mh.cu``, with a plain PyTorch version that
-runs on the CPU). It imports neither ``jax`` nor ``mh_tpu``.
+names for what it has so far: the scene model and its JSON format, the
+seven-term objective in PARITY and FIXED modes, ``suggest_layouts`` over
+the fused MH chain kernel (``kernels/csrc/fused_mh.cu``; single or compound
+moves, one or K accept draws), the Monte-Carlo pi estimator with its CUDA
+kernel (``kernels/csrc/pi_kernel.cu``), and the ``python -m mh_tpu_torch``
+command line. Each kernel has a plain PyTorch version that runs on the CPU.
+It imports neither ``jax`` nor ``mh_tpu``.
 """
 
 from mh_tpu_torch.config import CostMode, SamplerConfig, REF_PI, REF_BETA
@@ -18,6 +21,7 @@ from mh_tpu_torch.models.scene import (
 )
 from mh_tpu_torch.ops.costs import CostBreakdown, cost_terms, total_cost
 from mh_tpu_torch.api import LayoutResult, suggest_layouts
+from mh_tpu_torch.models.pi import estimate_pi
 
 __version__ = "0.1.0"
 
@@ -37,4 +41,5 @@ __all__ = [
     "total_cost",
     "LayoutResult",
     "suggest_layouts",
+    "estimate_pi",
 ]

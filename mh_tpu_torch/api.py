@@ -60,7 +60,9 @@ def suggest_layouts(
     ``key``: the integer seed of the kernel's counter-based stream.
     ``device``: where the chains run — ``"cuda"`` launches the fused CUDA
     kernel, ``"cpu"`` runs its plain PyTorch version. Default: a built
-    scene's device, else CUDA when a card is present.
+    scene's own device; for a :class:`SceneSpec`, ``"cuda"``, which raises
+    on a host without a CUDA device (the CPU is only ever chosen by name,
+    as ``JAX_PLATFORMS`` chooses it for ``mh_tpu``).
     ``engine``: ``"auto"`` and ``"fused"`` both run the fused kernel, the
     port's one engine. ``serve`` changes nothing for it (it has no
     per-scene compile to amortize). The other engines and ``mesh``,
@@ -83,8 +85,12 @@ def suggest_layouts(
         raise NotImplementedError("run logging is not ported yet (ROADMAP Queue 1.11)")
 
     if isinstance(scene, SceneSpec):
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the fused kernel needs one; pass device='cpu' to "
+                "run its plain PyTorch version"
+            )
         spec = scene
         scene = spec.build(device=device)
         if pose0 is None:

@@ -1,0 +1,226 @@
+"""Command-line interface: ``python -m mh_tpu_torch <command>``.
+
+The same commands, flags, defaults and JSON output as ``mh_tpu.cli``, plus
+``--device`` (default ``cuda``), the port's counterpart of
+``JAX_PLATFORMS``: ``cuda`` runs the CUDA kernels, ``cpu`` their plain
+PyTorch versions.
+
+Commands:
+  suggest   run MH layout suggestions on a scene (file or built-in demo)
+  demo      run + pretty-print the reference demo scene
+  pi        Monte-Carlo pi estimate (plain PyTorch; --fused for the CUDA kernel)
+  devices   report the CUDA devices
+  temper    parallel tempering (not ported yet: ROADMAP Queue 1.9)
+  smc       annealed SMC (not ported yet: ROADMAP Queue 1.9)
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+
+def _add_device_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--device", default="cuda",
+        help="cuda (the CUDA kernels; raises without a card) or cpu (their "
+             "plain PyTorch versions)",
+    )
+
+
+def _add_sampler_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--chains", type=int, default=4)
+    p.add_argument("--iters", type=int, default=100)
+    p.add_argument("--moves-per-step", type=int, default=1)
+    p.add_argument(
+        "--accept-draws", type=int, default=1,
+        help="K independent accept decisions per proposal (Kernel.cu:819 "
+             "emulation; set = --moves-per-step for reference-default "
+             "blockxDim semantics)",
+    )
+    p.add_argument("--beta", type=float, default=2.0)
+    p.add_argument("--mode", choices=["parity", "fixed"], default="parity")
+    p.add_argument("--adapt", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--config", help="JSON file of SamplerConfig overrides")
+    p.add_argument(
+        "--log", help="append a structured JSONL event stream here "
+                      "(not ported yet: ROADMAP Queue 1.11)",
+    )
+    p.add_argument(
+        "--log-every", type=int, default=0,
+        help="emit a `round` stats event every N steps (with --log)",
+    )
+    _add_device_flag(p)
+
+
+def _sampler_config(args):
+    from mh_tpu_torch.config import CostMode, SamplerConfig
+    from mh_tpu_torch.utils.serialization import sampler_config_from_dict
+
+    if args.config:
+        with open(args.config) as f:
+            return sampler_config_from_dict(json.load(f))
+    return SamplerConfig(
+        iterations=args.iters,
+        n_chains=args.chains,
+        n_moves_per_step=args.moves_per_step,
+        accept_draws=args.accept_draws,
+        beta=args.beta,
+        adapt=args.adapt,
+        mode=CostMode(args.mode),
+    )
+
+
+def _log_kwargs(args) -> dict:
+    """--log/--log-every -> suggest_layouts logging kwargs (which raise
+    NotImplementedError until run logging is ported)."""
+    if not getattr(args, "log", None):
+        return {}
+    every = getattr(args, "log_every", 0) or max(args.iters // 10, 1)
+    return {"log": args.log, "log_every": every}
+
+
+def cmd_suggest(args) -> int:
+    from mh_tpu_torch.api import suggest_layouts
+    from mh_tpu_torch.models.scene import demo_scene
+    from mh_tpu_torch.utils.serialization import load_scene
+
+    spec = load_scene(args.scene) if args.scene else demo_scene(args.objects)
+    res = suggest_layouts(
+        spec, _sampler_config(args), key=args.seed, engine=args.engine,
+        serve=args.serve, objs_devices=args.objs_devices, device=args.device,
+        **_log_kwargs(args),
+    )
+    out = {
+        "points": np.asarray(res.points, np.float64).tolist(),
+        "costs": {
+            name: np.asarray(res.costs[:, i], np.float64).tolist()
+            for i, name in enumerate(type(res).COST_FIELDS)
+        },
+        "accept_rate": np.asarray(res.accept_rate, np.float64).tolist(),
+    }
+    text = json.dumps(out)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+        print(f"wrote {args.out}")
+    else:
+        print(text)
+    return 0
+
+
+def cmd_demo(args) -> int:
+    from mh_tpu_torch.api import suggest_layouts
+    from mh_tpu_torch.models.scene import demo_scene
+
+    spec = demo_scene(args.objects)
+    res = suggest_layouts(
+        spec, _sampler_config(args), key=args.seed, device=args.device, **_log_kwargs(args)
+    )
+    for c in range(res.points.shape[0]):
+        print(f"Suggestion {c}  (accept rate {res.accept_rate[c]:.2f})")
+        print(
+            "  costs: "
+            + "  ".join(
+                f"{n}={v:.3f}" for n, v in zip(type(res).COST_FIELDS, res.costs[c])
+            )
+        )
+    return 0
+
+
+def cmd_pi(args) -> int:
+    if args.fused:
+        from mh_tpu_torch.kernels.pi_kernel import estimate_pi_fused
+
+        est, total = estimate_pi_fused(args.seed, args.samples, device=args.device)
+        print(f"pi ~= {est:.6f}  ({total} samples, fused kernel)")
+    else:
+        from mh_tpu_torch.models.pi import estimate_pi
+
+        est = estimate_pi(args.seed, n_samples=args.samples, device=args.device)
+        print(f"pi ~= {est:.6f}  ({args.samples} samples)")
+    return 0
+
+
+def device_report() -> str:
+    """Human-readable report of the CUDA devices PyTorch sees."""
+    import torch
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    lines = [
+        f"backend: {'cuda' if n else 'cpu'} (torch {torch.__version__}, CUDA {torch.version.cuda})",
+        f"{n} CUDA devices",
+    ]
+    for i in range(n):
+        lines.append(f"  device {i}: cuda ({torch.cuda.get_device_name(i)})")
+    return "\n".join(lines)
+
+
+def cmd_devices(_args) -> int:
+    print(device_report())
+    return 0
+
+
+def cmd_not_ported(args) -> int:
+    raise NotImplementedError(
+        f"{args.command}: tempering and SMC are not ported yet (ROADMAP Queue 1.9)"
+    )
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="mh_tpu_torch")
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("suggest", help="run MH layout suggestions")
+    p.add_argument("--scene", help="scene JSON (default: built-in demo scene)")
+    p.add_argument("--objects", type=int, default=32)
+    p.add_argument("--out", help="write results JSON here")
+    p.add_argument(
+        "--engine", default="auto",
+        choices=["auto", "xla", "xla_specialized", "fused"],
+        help="sampling engine (see suggest_layouts; only the fused kernel is ported)",
+    )
+    p.add_argument(
+        "--serve", action="store_true",
+        help="scene will be sampled repeatedly (no effect on the fused kernel)",
+    )
+    p.add_argument(
+        "--objs-devices", type=int, default=None,
+        help="shard the O(N^2) objective within each chain over this many "
+             "devices (not ported yet: ROADMAP Queue 1.8)",
+    )
+    _add_sampler_flags(p)
+    p.set_defaults(fn=cmd_suggest)
+
+    p = sub.add_parser("demo", help="reference demo scene, pretty-printed")
+    p.add_argument("--objects", type=int, default=32)
+    _add_sampler_flags(p)
+    p.set_defaults(fn=cmd_demo)
+
+    p = sub.add_parser("pi", help="Monte-Carlo pi estimate")
+    p.add_argument("--samples", type=int, default=1 << 22)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--fused", action="store_true", help="the CUDA pi kernel")
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_pi)
+
+    p = sub.add_parser("devices", help="device report")
+    p.set_defaults(fn=cmd_devices)
+
+    # their flags come with the port of tempering and SMC; until then each
+    # takes mh_tpu's flags unread and raises
+    for name, what in (("temper", "parallel tempering"), ("smc", "annealed SMC")):
+        sub.add_parser(name, help=f"{what} (not ported yet)").set_defaults(fn=cmd_not_ported)
+
+    args, unread = ap.parse_known_args(argv)
+    if unread and args.fn is not cmd_not_ported:
+        ap.error(f"unrecognized arguments: {' '.join(unread)}")
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

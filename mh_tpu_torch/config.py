@@ -36,9 +36,10 @@ class CostMode(enum.Enum):
 class SamplerConfig:
     """Static sampler configuration (replaces ``gpuConfig``, Kernel.cu:119-127).
 
-    ``n_moves_per_step`` > 1 (compound block proposals) and
-    ``accept_draws`` > 1 (the min-of-K accept rule) are valid settings that
-    the port's fused kernel does not run yet; it raises for them.
+    ``n_moves_per_step`` > 1 makes each step a compound block proposal of
+    that many sequential moves, scored and accepted once; ``accept_draws``
+    = K > 1 accepts when the minimum of K uniforms falls below the
+    Boltzmann ratio (the fused kernel takes K in [1, 120]).
     """
 
     iterations: int = 100

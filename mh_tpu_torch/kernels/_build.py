@@ -1,10 +1,11 @@
 """Build ``csrc/*.cu`` with ``nvcc`` at first use and load it with ``ctypes``.
 
 The sources expose a plain C interface (pointers, ints, the CUDA stream),
-so the build needs no PyTorch headers and takes seconds. The library is
-cached under ``_build/`` keyed by a hash of the sources and flags, so an
-edited source is rebuilt and a stale library is never loaded. There is no
-fallback: without ``nvcc`` the build raises.
+so the build needs no PyTorch headers and takes seconds. One ``nvcc`` call
+compiles every source into one library, cached under ``_build/`` keyed by a
+hash of the sources, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source is rebuilt and a stale library is never loaded. There is
+no fallback: without ``nvcc`` the build raises.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ SRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 
 # --fmad=false keeps every multiply and add separately rounded, as the plain
-# PyTorch version computes them; -Xptxas -v reports registers and spills.
+# PyTorch versions compute them; -Xptxas -v reports registers and spills.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
@@ -32,12 +33,15 @@ NVCC_FLAGS = [
 
 _c_void_p, _c_int, _c_uint32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 _SIGNATURES = {
-    # pose_in, pose_out, stats, planes, unf_idx, scalars, rel_idx, rel_p,
-    # ang_idx, ang_p, clr_idx, clr_p, n_rel, n_ang, n_clr, n, n_chains, seed,
-    # iterations, first_chain, parity, track_off, adapt, stream
-    "mh_fused_run": [_c_void_p] * 12 + [_c_int] * 5 + [_c_uint32] + [_c_int] * 5 + [_c_void_p],
-    # out, seed, counter, first_chain, n_chains, stream
+    # csrc/fused_mh.cu: pose_in, pose_out, stats, planes, unf_idx, scalars,
+    # rel_idx, rel_p, ang_idx, ang_p, clr_idx, clr_p, n_rel, n_ang, n_clr, n,
+    # n_chains, seed, iterations, first_chain, parity, track_off, adapt, moves,
+    # accept_draws, stream
+    "mh_fused_run": [_c_void_p] * 12 + [_c_int] * 5 + [_c_uint32] + [_c_int] * 7 + [_c_void_p],
+    # csrc/fused_mh.cu: out, seed, counter, first_chain, n_chains, stream
     "mh_uniform_block": [_c_void_p, _c_uint32, _c_uint32, _c_int, _c_int, _c_void_p],
+    # csrc/pi_kernel.cu: partial, n_blocks, seed, total, stream
+    "mh_pi_hits": [_c_void_p, _c_int, _c_uint32, ctypes.c_longlong, _c_void_p],
 }
 
 

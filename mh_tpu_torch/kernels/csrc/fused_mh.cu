@@ -10,17 +10,26 @@
 //
 // Layout: one thread block per chain, THREADS threads, thread t owning object
 // lanes t, t + THREADS, ... The current pose (6 planes x N) and the proposed
-// ("star") x / y / rot planes live in shared memory; the scene is read from
-// global memory (it is small and stays in L1/L2).
+// ("star") planes live in shared memory; the scene is read from global
+// memory (it is small and stays in L1/L2).
+//
+// A step proposes one move (translate / rotate / swap), or with
+// `moves > 1` a compound block proposal of `moves` sequential moves
+// (`iter_body_multi`, fused_mh.py:1444-1575: the deterministic form of the
+// reference's blockxDim per-thread proposals, Kernel.cu:798-828), and
+// accepts against one uniform or, with `accept_draws = K > 1`, against the
+// minimum of K (Kernel.cu:819). For a compound step the threads draw and
+// decode up to THREADS moves at once; thread 0 then applies them in order,
+// each touching only the <= 2 objects it picked in the six star planes.
 //
 // What bounds it: the symmetry term is O(N^2) arithmetic per chain per step
 // (every object's reflection is matched against every object: 10^4 sym_val
 // evaluations per step at 100 objects), and FIXED mode with a weighted
-// off-limits term adds another O(N^2) overlap sum. This first version
-// recomputes both in full every step, as the JAX kernel's
-// `incremental=False` path does; carrying per-slab maxima to make the step
-// O(N) (fused_mh.py:1082-1173) is later work. There is no matrix product:
-// the TPU kernel's one-hot MXU gathers are plain indexed loads here.
+// off-limits term adds another O(N^2) overlap sum. This version recomputes
+// both in full every step, as the JAX kernel's `incremental=False` path
+// does; carrying per-slab maxima to make the step O(N) (fused_mh.py:
+// 1082-1173) is later work. There is no matrix product: the TPU kernel's
+// one-hot MXU gathers are plain indexed loads here.
 //
 // Numerics: build with --fmad=false and without --use_fast_math, so every
 // operation is rounded as the PyTorch version rounds it.
@@ -28,11 +37,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "counter_rng.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int STEP_LANES = 8;
-constexpr int UNROLL = 4;
+constexpr int PROPOSAL_LANES = 8;  // uniforms one move consumes
+constexpr int DRAW_LANES = 128;    // uniforms per (chain, draw counter)
+constexpr int MAX_ACCEPT_DRAWS = DRAW_LANES - PROPOSAL_LANES;
 constexpr int N_STATS = 10;
 constexpr float NEG_HUGE = -1e30f;
 constexpr float TRUE_PI = 3.14159265358979323846f;
@@ -51,6 +63,10 @@ enum {
 };
 // rows of the reduction buffer; clearance c reduces in row R_CLR0 + c
 enum { R_NX, R_NY, R_FP, R_OBJOUT, R_SYM, R_OFF, R_CLR0 };
+// move kinds; a swap drawn in a scene of fewer than two objects does nothing
+enum { MOVE_TRANSLATE, MOVE_ROTATE, MOVE_SWAP, MOVE_NONE };
+// per-move rows of the compound step's move table (THREADS entries each)
+enum { M_DX, M_DY, M_DROT, M_KIND, M_I1, M_I2, N_MOVE_ROWS };
 
 struct Params {
   const float* pose_in;   // f32[C, N, 6]
@@ -68,11 +84,12 @@ struct Params {
   int n_rel, n_ang, n_clr, n, n_chains;
   uint32_t seed;
   int iterations, first_chain, parity, track_off, adapt;
+  int moves, accept_draws;  // moves per step (compound if > 1); K accept uniforms
 };
 
 // Per-block values that one thread computes and all threads read.
 struct Shared {
-  float u_acc, dx, dy, drot, is_t, is_r, sw, gate;
+  float u_acc, dx, dy, drot, is_t, is_r, sw, scale;
   int i1, i2;             // lanes of the two picked objects (-1: none)
   float r1v[6], r2v[6];   // current pose planes at i1 / i2
   float total, terms[7];  // costs of the last evaluated pose
@@ -80,24 +97,11 @@ struct Shared {
   int acc;
 };
 
-// ---- counter-based stream (fused_mh.py:357-402, :1403-1408) ----------------
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 17;
-  x *= 0xED5AD4BBu;
-  x ^= x >> 11;
-  x *= 0xAC4C1B51u;
-  x ^= x >> 15;
-  x *= 0x31848BABu;
-  x ^= x >> 14;
-  return x;
-}
-
-__device__ __forceinline__ float mh_uniform(uint32_t seed, uint32_t chain, uint32_t counter,
-                                            uint32_t lane) {
-  const uint32_t base = (seed * 0x9E3779B9u) ^ (counter * 0x85EBCA6Bu);
-  const uint32_t bits = mix32(mix32((chain * 128u + lane) ^ base)) >> 9;
-  return static_cast<float>(bits) * 1.1920928955078125e-07f + 1e-7f;  // 2^-23
-}
+// One decoded move (fused_mh.py:1478-1491, :1657-1693)
+struct Move {
+  float dx, dy, drot;
+  int kind, i1, i2;
+};
 
 // ---- geometry (fused_mh.py:319-577) -----------------------------------------
 __device__ __forceinline__ float atan2_poly(float y, float x) {
@@ -140,6 +144,12 @@ __device__ __forceinline__ float floor_mod(float a, float b) {
   return (r != 0.f && ((r < 0.f) != (b < 0.f))) ? r + b : r;
 }
 
+// single conditional wrap into [0, 2 pi] (Kernel.cu:648-651)
+__device__ __forceinline__ float wrap_once(float a, float two_pi) {
+  a = a < 0.f ? a + two_pi : a;
+  return a > two_pi ? a - two_pi : a;
+}
+
 // match score of candidate c vs reflection r (Kernel.cu:301-312)
 __device__ __forceinline__ float sym_val(float cx, float cy, float cr, float rx, float ry,
                                          float rr, float pi, float two_pi) {
@@ -148,6 +158,71 @@ __device__ __forceinline__ float sym_val(float cx, float cy, float cr, float rx,
   float dt = cr - rr;
   dt = dt > pi ? dt - two_pi : dt;
   return 5.f - sqrtf(dp) - 0.4f * fabsf(dt);
+}
+
+// ---- proposal ---------------------------------------------------------------
+// The move that 8 uniforms u[0..7] drive (fused_mh.py:1478-1491): kind from
+// u0, Box-Muller steps from u2..u5, and two objects picked by rank among the
+// movable ones from u6, u7 (fused_mh.py:1675-1693). Lane 1 is the accept draw.
+__device__ __forceinline__ Move decode_move(const Params& p, const float* u, float scale) {
+  const float* sc = p.sc;
+  Move m;
+  const int move = min(static_cast<int>(u[0] * 3.f), 2);
+  const float r1 = sqrtf(-2.f * logf(u[2]));
+  const float r2 = sqrtf(-2.f * logf(u[4]));
+  m.dx = r1 * cosf(TWO_PI_TRUE * u[3]) * sc[S_SIGX] * scale;
+  m.dy = r1 * sinf(TWO_PI_TRUE * u[3]) * sc[S_SIGY] * scale;
+  m.drot = r2 * cosf(TWO_PI_TRUE * u[5]) * sc[S_SIGT] * scale;
+  const float n_unf = sc[S_NUNF];
+  const float n_unf_m1 = fmaxf(n_unf - 1.f, 0.f);
+  const float k1 = fminf(floorf(u[6] * n_unf), n_unf_m1) + 1.f;
+  const float k2 = fminf(floorf(u[7] * n_unf), n_unf_m1) + 1.f;
+  const bool has_unfrozen = n_unf > 0.f;
+  m.i1 = has_unfrozen ? p.unf_idx[static_cast<int>(k1) - 1] : -1;
+  m.i2 = has_unfrozen ? p.unf_idx[static_cast<int>(k2) - 1] : -1;
+  m.kind = (move == 2 && !(sc[S_NOBJ] >= 2.f)) ? MOVE_NONE : move;
+  return m;
+}
+
+__device__ __forceinline__ void draw_move_uniforms(const Params& p, uint32_t gchain,
+                                                   uint32_t counter, uint32_t lane0, float* u) {
+  for (int k = 0; k < PROPOSAL_LANES; ++k) u[k] = mh_uniform(p.seed, gchain, counter, lane0 + k);
+}
+
+// min over lanes lane0 .. lane0 + k - 1 of one draw counter, computed by the
+// whole calling warp (every lane of it must call) and returned to every lane
+__device__ __forceinline__ float warp_min_uniform(uint32_t seed, uint32_t gchain,
+                                                  uint32_t counter, uint32_t lane0, int k) {
+  float m = 2.f;  // above every uniform
+  for (int j = threadIdx.x & 31; j < k; j += 32)
+    m = fminf(m, mh_uniform(seed, gchain, counter, lane0 + j));
+  for (int o = 16; o > 0; o >>= 1) m = fminf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  return m;
+}
+
+// Apply one move of a compound step to the six star planes S (thread 0 only).
+// Each update rounds as the plane expressions of iter_body_multi
+// (fused_mh.py:1493-1512) round at the picked lanes: x + w (clip(x+dx) - x)
+// and rot + w (wrapped - rot) with w = 1, and a swap as v1 + (v2 - v1),
+// v2 - (v2 - v1) from the pre-swap values.
+__device__ __forceinline__ void apply_move(const float* sc, float* S, int N, float two_pi,
+                                           const Move& m) {
+  if (m.i1 < 0) return;
+  if (m.kind == MOVE_TRANSLATE) {
+    const float x = S[m.i1], y = S[N + m.i1];
+    S[m.i1] = x + (fminf(fmaxf(x + m.dx, sc[S_MNX]), sc[S_MXX]) - x);
+    S[N + m.i1] = y + (fminf(fmaxf(y + m.dy, sc[S_MNY]), sc[S_MXY]) - y);
+  } else if (m.kind == MOVE_ROTATE) {
+    const float rot = S[4 * N + m.i1];
+    S[4 * N + m.i1] = rot + (wrap_once(rot + m.drot, two_pi) - rot);
+  } else if (m.kind == MOVE_SWAP && m.i1 != m.i2) {
+    for (int q = 0; q < 6; ++q) {
+      const float v1 = S[q * N + m.i1], v2 = S[q * N + m.i2];
+      const float d = v2 - v1;
+      S[q * N + m.i1] = v1 + d;
+      S[q * N + m.i2] = v2 - d;
+    }
+  }
 }
 
 // The weighted objective of the pose planes (X, Y, R) -> sh.total, sh.terms
@@ -314,12 +389,17 @@ __global__ void __launch_bounds__(THREADS) fused_mh_kernel(const Params p) {
   extern __shared__ float smem[];
   __shared__ Shared sh;
   const int N = p.n, tid = threadIdx.x, chain = blockIdx.x;
-  float* P = smem;           // 6 x N current pose planes (x, y, z, rotX, rotY, rotZ)
-  float* X = P + 6 * N;      // star x
-  float* Y = X + N;          // star y
-  float* R = Y + N;          // star rotY
-  float* MASK = R + N;       // object mask
-  float* red = MASK + N;     // (R_CLR0 + n_clr) x THREADS partial sums
+  const bool compound = p.moves > 1;
+  float* P = smem;  // 6 x N current pose planes (x, y, z, rotX, rotY, rotZ)
+  // star planes: x, y, rotY for one move; all six for a compound step, whose
+  // swaps also move z, rotX and rotZ
+  float* S = P + 6 * N;
+  float* X = S;
+  float* Y = S + N;
+  float* R = compound ? S + 4 * N : S + 2 * N;
+  float* MASK = S + (compound ? 6 : 3) * N;  // object mask
+  float* red = MASK + N;                      // (R_CLR0 + n_clr) x THREADS partial sums
+  float* mv = red + (R_CLR0 + p.n_clr) * THREADS;  // compound: N_MOVE_ROWS x THREADS
   const float* sc = p.sc;
 
   const float* pin = p.pose_in + static_cast<size_t>(chain) * N * 6;
@@ -332,60 +412,100 @@ __global__ void __launch_bounds__(THREADS) fused_mh_kernel(const Params p) {
   float cur = sh.total, log_scale = 0.f;
   int n_acc = 0;
 
-  const float pi = sc[S_PI], two_pi = 2.f * pi;
-  const float n_unf = sc[S_NUNF];
+  const float two_pi = 2.f * sc[S_PI];
+  const float gate = sc[S_NUNF] > 0.f ? 1.f : 0.f;
+  const int K = p.accept_draws;
+  // single move: `lanes` uniforms per step, `unroll` steps per draw counter
+  // (fused_mh.py:1868-1875); step t reads lanes lanes*(t % unroll) + [0, lanes)
+  // of counter t / unroll, the K accept draws at lanes 8 .. 8+K-1 of its slice
+  const int lanes = K == 1 ? PROPOSAL_LANES : PROPOSAL_LANES + K;
+  const int unroll = min(4, max(1, DRAW_LANES / lanes));
   const uint32_t gchain = static_cast<uint32_t>(p.first_chain + chain);
   for (int t = 0; t < p.iterations; ++t) {
-    if (tid == 0) {
-      // step t reads lanes 8 (t % 4) .. + 7 of draw counter t / 4 (fused_mh.py:1899-1922)
-      const uint32_t counter = static_cast<uint32_t>(t / UNROLL);
-      const uint32_t lane0 = STEP_LANES * (t % UNROLL);
-      float u[STEP_LANES];
-      for (int k = 0; k < STEP_LANES; ++k) u[k] = mh_uniform(p.seed, gchain, counter, lane0 + k);
-      const int move = min(static_cast<int>(u[0] * 3.f), 2);
-      const float scale = p.adapt ? expf(log_scale) : 1.f;
-      const float r1 = sqrtf(-2.f * logf(u[2]));
-      const float r2 = sqrtf(-2.f * logf(u[4]));
-      sh.u_acc = u[1];
-      sh.dx = r1 * cosf(TWO_PI_TRUE * u[3]) * sc[S_SIGX] * scale;
-      sh.dy = r1 * sinf(TWO_PI_TRUE * u[3]) * sc[S_SIGY] * scale;
-      sh.drot = r2 * cosf(TWO_PI_TRUE * u[5]) * sc[S_SIGT] * scale;
-      // uniform rank pick among movable objects (fused_mh.py:1675-1693)
-      const float n_unf_m1 = fmaxf(n_unf - 1.f, 0.f);
-      const float k1 = fminf(floorf(u[6] * n_unf), n_unf_m1) + 1.f;
-      const float k2 = fminf(floorf(u[7] * n_unf), n_unf_m1) + 1.f;
-      const bool has_unfrozen = n_unf > 0.f;
-      sh.i1 = has_unfrozen ? p.unf_idx[static_cast<int>(k1) - 1] : -1;
-      sh.i2 = has_unfrozen ? p.unf_idx[static_cast<int>(k2) - 1] : -1;
-      sh.gate = has_unfrozen ? 1.f : 0.f;
-      sh.is_t = move == 0 ? 1.f : 0.f;
-      sh.is_r = move == 1 ? 1.f : 0.f;
-      sh.sw = (move == 2 && sc[S_NOBJ] >= 2.f ? 1.f : 0.f) * sh.gate;
-      for (int q = 0; q < 6; ++q) {
-        sh.r1v[q] = sh.i1 >= 0 ? P[q * N + sh.i1] : 0.f;
-        sh.r2v[q] = sh.i2 >= 0 ? P[q * N + sh.i2] : 0.f;
+    if (!compound) {
+      if (tid < 32) {
+        const uint32_t counter = static_cast<uint32_t>(t / unroll);
+        const uint32_t lane0 = static_cast<uint32_t>(lanes * (t % unroll));
+        const float u_min =
+            K > 1 ? warp_min_uniform(p.seed, gchain, counter, lane0 + PROPOSAL_LANES, K) : 0.f;
+        if (tid == 0) {
+          float u[PROPOSAL_LANES];
+          draw_move_uniforms(p, gchain, counter, lane0, u);
+          const Move m = decode_move(p, u, p.adapt ? expf(log_scale) : 1.f);
+          sh.u_acc = K > 1 ? u_min : u[1];
+          sh.dx = m.dx;
+          sh.dy = m.dy;
+          sh.drot = m.drot;
+          sh.i1 = m.i1;
+          sh.i2 = m.i2;
+          sh.is_t = m.kind == MOVE_TRANSLATE ? 1.f : 0.f;
+          sh.is_r = m.kind == MOVE_ROTATE ? 1.f : 0.f;
+          sh.sw = (m.kind == MOVE_SWAP ? 1.f : 0.f) * gate;
+          for (int q = 0; q < 6; ++q) {
+            sh.r1v[q] = m.i1 >= 0 ? P[q * N + m.i1] : 0.f;
+            sh.r2v[q] = m.i2 >= 0 ? P[q * N + m.i2] : 0.f;
+          }
+        }
+      }
+      __syncthreads();
+
+      // star pose: translate / rotate the first pick, or swap the two picks
+      // (the plane expressions of fused_mh.py:1696-1723)
+      const float sw = sh.sw;
+      for (int i = tid; i < N; i += THREADS) {
+        const float s1 = i == sh.i1 ? 1.f : 0.f, s2 = i == sh.i2 ? 1.f : 0.f;
+        const float swd = sw * (s1 - s2);
+        const float x = P[i], y = P[N + i], rot = P[4 * N + i];
+        const float wt = sh.is_t * s1;
+        const float tdx = wt * (fminf(fmaxf(x + sh.dx, sc[S_MNX]), sc[S_MXX]) - x);
+        const float tdy = wt * (fminf(fmaxf(y + sh.dy, sc[S_MNY]), sc[S_MXY]) - y);
+        const float tdr = (sh.is_r * s1) * (wrap_once(rot + sh.drot, two_pi) - rot);
+        X[i] = x + gate * (tdx + swd * (sh.r2v[0] - sh.r1v[0]));
+        Y[i] = y + gate * (tdy + swd * (sh.r2v[1] - sh.r1v[1]));
+        R[i] = rot + gate * (tdr + swd * (sh.r2v[4] - sh.r1v[4]));
+      }
+      __syncthreads();
+    } else {
+      // compound step t: the accept draw(s) come from counter t (M + 1), move
+      // m from counter t (M + 1) + 1 + m (one draw_block each, fused_mh.py:1453,1477)
+      const uint32_t c0 = static_cast<uint32_t>(t) * static_cast<uint32_t>(p.moves + 1);
+      for (int k = tid; k < 6 * N; k += THREADS) S[k] = P[k];
+      if (tid < 32) {
+        const float u_acc = K > 1 ? warp_min_uniform(p.seed, gchain, c0, 1, K)
+                                  : mh_uniform(p.seed, gchain, c0, 1);
+        if (tid == 0) {
+          sh.u_acc = u_acc;
+          sh.scale = p.adapt ? expf(log_scale) : 1.f;  // once per step, before the moves
+        }
+      }
+      __syncthreads();
+      for (int m0 = 0; m0 < p.moves; m0 += THREADS) {
+        const int count = min(THREADS, p.moves - m0);
+        if (tid < count) {
+          float u[PROPOSAL_LANES];
+          draw_move_uniforms(p, gchain, c0 + 1u + static_cast<uint32_t>(m0 + tid), 0, u);
+          const Move m = decode_move(p, u, sh.scale);
+          // kinds and lanes are small integers, exact in f32
+          mv[M_DX * THREADS + tid] = m.dx;
+          mv[M_DY * THREADS + tid] = m.dy;
+          mv[M_DROT * THREADS + tid] = m.drot;
+          mv[M_KIND * THREADS + tid] = static_cast<float>(m.kind);
+          mv[M_I1 * THREADS + tid] = static_cast<float>(m.i1);
+          mv[M_I2 * THREADS + tid] = static_cast<float>(m.i2);
+        }
+        __syncthreads();
+        if (tid == 0) {
+          for (int j = 0; j < count; ++j) {
+            const Move m{mv[M_DX * THREADS + j], mv[M_DY * THREADS + j],
+                         mv[M_DROT * THREADS + j], static_cast<int>(mv[M_KIND * THREADS + j]),
+                         static_cast<int>(mv[M_I1 * THREADS + j]),
+                         static_cast<int>(mv[M_I2 * THREADS + j])};
+            apply_move(sc, S, N, two_pi, m);
+          }
+        }
+        __syncthreads();
       }
     }
-    __syncthreads();
-
-    // star pose: translate / rotate the first pick, or swap the two picks
-    const float gate = sh.gate, sw = sh.sw;
-    for (int i = tid; i < N; i += THREADS) {
-      const float s1 = i == sh.i1 ? 1.f : 0.f, s2 = i == sh.i2 ? 1.f : 0.f;
-      const float swd = sw * (s1 - s2);
-      const float x = P[i], y = P[N + i], rot = P[4 * N + i];
-      const float wt = sh.is_t * s1;
-      const float tdx = wt * (fminf(fmaxf(x + sh.dx, sc[S_MNX]), sc[S_MXX]) - x);
-      const float tdy = wt * (fminf(fmaxf(y + sh.dy, sc[S_MNY]), sc[S_MXY]) - y);
-      float wr = rot + sh.drot;
-      wr = wr < 0.f ? wr + two_pi : wr;
-      wr = wr > two_pi ? wr - two_pi : wr;
-      const float tdr = (sh.is_r * s1) * (wr - rot);
-      X[i] = x + gate * (tdx + swd * (sh.r2v[0] - sh.r1v[0]));
-      Y[i] = y + gate * (tdy + swd * (sh.r2v[1] - sh.r1v[1]));
-      R[i] = rot + gate * (tdr + swd * (sh.r2v[4] - sh.r1v[4]));
-    }
-    __syncthreads();
 
     eval_costs(p, X, Y, R, MASK, red, sh, p.track_off);
 
@@ -400,14 +520,19 @@ __global__ void __launch_bounds__(THREADS) fused_mh_kernel(const Params p) {
     __syncthreads();
 
     if (sh.acc) {
-      for (int i = tid; i < N; i += THREADS) {
-        const float swd = sw * ((i == sh.i1 ? 1.f : 0.f) - (i == sh.i2 ? 1.f : 0.f));
-        P[i] = X[i];
-        P[N + i] = Y[i];
-        P[4 * N + i] = R[i];
-        for (int q = 2; q < 6; ++q) {  // z, rotX, rotZ: only a swap moves them
-          if (q == 4) continue;
-          P[q * N + i] = P[q * N + i] + gate * (0.f + swd * (sh.r2v[q] - sh.r1v[q]));
+      if (compound) {
+        for (int k = tid; k < 6 * N; k += THREADS) P[k] = S[k];
+      } else {
+        const float sw = sh.sw;
+        for (int i = tid; i < N; i += THREADS) {
+          const float swd = sw * ((i == sh.i1 ? 1.f : 0.f) - (i == sh.i2 ? 1.f : 0.f));
+          P[i] = X[i];
+          P[N + i] = Y[i];
+          P[4 * N + i] = R[i];
+          for (int q = 2; q < 6; ++q) {  // z, rotX, rotZ: only a swap moves them
+            if (q == 4) continue;
+            P[q * N + i] = P[q * N + i] + gate * (0.f + swd * (sh.r2v[q] - sh.r1v[q]));
+          }
         }
       }
     }
@@ -430,7 +555,7 @@ __global__ void __launch_bounds__(THREADS) fused_mh_kernel(const Params p) {
 __global__ void uniform_block_kernel(float* out, uint32_t seed, uint32_t counter,
                                      int first_chain) {
   const uint32_t chain = static_cast<uint32_t>(first_chain) + blockIdx.x;
-  out[static_cast<size_t>(blockIdx.x) * 128 + threadIdx.x] =
+  out[static_cast<size_t>(blockIdx.x) * DRAW_LANES + threadIdx.x] =
       mh_uniform(seed, chain, counter, threadIdx.x);
 }
 
@@ -445,12 +570,19 @@ int mh_fused_run(const float* pose_in, float* pose_out, float* stats, const floa
                  const int* ang_idx, const float* ang_p, const int* clr_idx,
                  const float* clr_p, int n_rel, int n_ang, int n_clr, int n, int n_chains,
                  uint32_t seed, int iterations, int first_chain, int parity, int track_off,
-                 int adapt, void* stream) {
+                 int adapt, int moves, int accept_draws, void* stream) {
+  if (moves < 1 || accept_draws < 1 || accept_draws > MAX_ACCEPT_DRAWS)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Params p{pose_in, pose_out, stats, planes, unf_idx, sc, rel_idx, rel_p,
                  ang_idx, ang_p, clr_idx, clr_p, n_rel, n_ang, n_clr, n, n_chains,
-                 seed, iterations, first_chain, parity, track_off, adapt};
-  const size_t smem = sizeof(float) * (10 * static_cast<size_t>(n) +
-                                       static_cast<size_t>(R_CLR0 + n_clr) * THREADS);
+                 seed, iterations, first_chain, parity, track_off, adapt, moves, accept_draws};
+  // pose 6N + star 3N (6N compound) + mask N, the reduction rows, and the
+  // compound step's move table
+  const bool compound = moves > 1;
+  const size_t smem =
+      sizeof(float) * ((compound ? 13 : 10) * static_cast<size_t>(n) +
+                       static_cast<size_t>(R_CLR0 + n_clr) * THREADS +
+                       (compound ? N_MOVE_ROWS * THREADS : 0));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fused_mh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -465,7 +597,7 @@ int mh_fused_run(const float* pose_in, float* pose_out, float* stats, const floa
 int mh_uniform_block(float* out, uint32_t seed, uint32_t counter, int first_chain,
                      int n_chains, void* stream) {
   if (n_chains > 0)
-    uniform_block_kernel<<<n_chains, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+    uniform_block_kernel<<<n_chains, DRAW_LANES, 0, static_cast<cudaStream_t>(stream)>>>(
         out, seed, counter, first_chain);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,11 +10,12 @@ weighted breakdown of each final pose:
 - on CPU tensors it runs :func:`fused_chains_reference`, the plain
   PyTorch version of the same algorithm, batched over chains.
 
-Both follow the JAX kernel's semantics with ``n_moves_per_step == 1`` and
-``accept_draws == 1``: the same counter-based random stream keyed by
-(seed, global chain, draw counter, lane), the same proposal, the same
-objective formulas (polynomial ``atan2``, angle-addition focal term,
-area-minus-overlap outside area) and the same accept rule. The plain
+Both follow the JAX kernel's semantics: the same counter-based random
+stream keyed by (seed, global chain, draw counter, lane) in the same draw
+layout, the same proposal (one move, or ``n_moves_per_step`` sequential
+moves scored once), the same objective formulas (polynomial ``atan2``,
+angle-addition focal term, area-minus-overlap outside area) and the same
+accept rule (one uniform, or the minimum of ``accept_draws``). The plain
 version also reproduces the CUDA kernel's summation order (a per-thread
 strided sum over ``THREADS`` lanes, then a halving tree), so on one card
 the two agree to the last bit unless the math library differs.
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 
 from mh_tpu_torch.config import CostMode, SamplerConfig
 from mh_tpu_torch.kernels import _build
+from mh_tpu_torch.kernels.counter_rng import M32, counter_bits
 from mh_tpu_torch.models.scene import Scene
 from mh_tpu_torch.ops import geometry as geo
 from mh_tpu_torch.ops.costs import floor_mod
@@ -44,8 +46,9 @@ Tensor = torch.Tensor
 
 THREADS = 128  # CUDA block size: one block per chain, lanes strided over threads
 DRAW_LANES = 128  # uniforms per (chain, draw counter): flat = chain * 128 + lane
-STEP_LANES = 8  # uniforms one step consumes
-UNROLL = 4  # steps per draw counter (mh_tpu/kernels/fused_mh.py:1875)
+PROPOSAL_LANES = 8  # uniforms one move consumes
+MAX_ACCEPT_DRAWS = DRAW_LANES - PROPOSAL_LANES  # 120 (mh_tpu/kernels/fused_mh.py:2356)
+N_MOVE_ROWS = 6  # compound step: dx, dy, drot, kind, i1, i2 per move, THREADS moves
 N_STATS = 10  # breakdown[8], n_accept, step_scale
 MAX_SMEM = 232448 - 1024  # sm_90 per-block shared memory, less the static part
 
@@ -81,6 +84,8 @@ class PackedScene:
     parity: bool
     track_off: bool  # FIXED with a nonzero off-limits weight: off enters the loop
     adapt: bool
+    moves: int  # moves per step; > 1 is a compound block proposal
+    accept_draws: int  # K: accept iff the minimum of K uniforms < ratio
 
     @property
     def n(self) -> int:
@@ -91,14 +96,30 @@ class PackedScene:
         return self.clr_idx.shape[0]
 
 
+def step_layout(accept_draws: int) -> tuple[int, int]:
+    """``(lanes, unroll)`` of a single-move step (``fused_mh.py:1868-1875``).
+
+    A step reads ``lanes`` uniforms: the 8 of its move, then its K accept
+    draws when K > 1. One draw counter serves ``unroll`` steps: step t
+    reads lanes ``lanes * (t % unroll) + [0, lanes)`` of counter
+    ``t // unroll``.
+    """
+    lanes = PROPOSAL_LANES if accept_draws == 1 else PROPOSAL_LANES + accept_draws
+    return lanes, min(4, max(1, DRAW_LANES // lanes))
+
+
 def pack_scene(scene: Scene, cfg: SamplerConfig) -> PackedScene:
     """Pack a Scene into the kernel's inputs on the scene's device.
 
     Keeps the JAX packing's scalars (``mh_tpu/kernels/fused_mh.py:226-252``),
     its cumulative rank of movable objects (``:217``) and the PARITY
     clearance anchor ``min(i, N-1)`` (``:275``); entity gathers become index
-    arrays.
+    arrays. Raises for ``accept_draws`` outside ``[1, 120]`` (``:2356``):
+    one draw counter holds 8 proposal lanes and at most 120 accept lanes.
     """
+    if not 1 <= cfg.accept_draws <= MAX_ACCEPT_DRAWS:
+        raise ValueError(f"fused kernel supports accept_draws in [1, {MAX_ACCEPT_DRAWS}], "
+                         f"got {cfg.accept_draws}")
     dev = scene.device
     n0 = scene.n_pad_objs
 
@@ -191,32 +212,14 @@ def pack_scene(scene: Scene, cfg: SamplerConfig) -> PackedScene:
         parity=parity,
         track_off=not parity and float(scene.w_offlimits) != 0.0,
         adapt=cfg.adapt,
+        moves=cfg.n_moves_per_step,
+        accept_draws=cfg.accept_draws,
     )
 
 
 # ---------------------------------------------------------------------------
 # counter-based random stream (mh_tpu/kernels/fused_mh.py:357-402, :1403-1408)
 # ---------------------------------------------------------------------------
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x: Tensor, c: int) -> Tensor:
-    """(x * c) mod 2^32 for int64 x in [0, 2^32), without int64 overflow."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
-
-
-def _mix(x: Tensor) -> Tensor:
-    """triple32-style mixing on uint32 values held in int64 (logical shifts)."""
-    x = x ^ (x >> 17)
-    x = _mul32(x, 0xED5AD4BB)
-    x = x ^ (x >> 11)
-    x = _mul32(x, 0xAC4C1B51)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x31848BAB)
-    return x ^ (x >> 14)
-
-
 def uniform_block(seed: int, counter: int, first_chain: int, n_chains: int,
                   device=None) -> Tensor:
     """f32[n_chains, DRAW_LANES] uniforms in (0, 1) for one draw counter.
@@ -225,11 +228,9 @@ def uniform_block(seed: int, counter: int, first_chain: int, n_chains: int,
     lane): ``u = (mix(mix(flat ^ base)) >>> 9) * 2^-23 + 1e-7`` with
     ``base = seed * 0x9E3779B9 ^ counter * 0x85EBCA6B`` (uint32).
     """
-    base = ((seed * 0x9E3779B9) ^ (counter * 0x85EBCA6B)) & _M32
     chains = torch.arange(n_chains, dtype=torch.int64, device=device) + first_chain
     lanes = torch.arange(DRAW_LANES, dtype=torch.int64, device=device)
-    flat = (chains[:, None] * DRAW_LANES + lanes) & _M32
-    bits = _mix(_mix(flat ^ base)) >> 9
+    bits = counter_bits(seed, counter, chains[:, None] * DRAW_LANES + lanes)
     return bits.to(torch.float32) * (1.0 / (1 << 23)) + 1e-7
 
 
@@ -450,8 +451,16 @@ def fused_chains_reference(
 
     ``pose0`` is f32[C, N, 6]. Returns ``(pose f32[C, N, 6], breakdown
     f32[C, 8], n_accept i32[C], step_scale f32[C])``. A Python loop runs
-    the steps; each draws its 8 uniforms from counter ``t // 4``, lanes
-    ``8 (t % 4) + k`` (``fused_mh.py:1899-1922``).
+    the steps in the JAX kernel's draw layout:
+
+    - one move per step: step t reads the lanes :func:`step_layout` gives
+      (``fused_mh.py:1899-1922``); its accept uniform is lane 1, or with
+      K > 1 the minimum of lanes 8 .. 8+K-1 of its slice (``:1660-1667``);
+    - a compound step of M > 1 moves (``iter_body_multi``, ``:1444-1575``):
+      the accept draw comes from counter ``t (M+1)`` (lane 1, or the minimum
+      of lanes 1 .. K), move m from lanes 0-7 of counter ``t (M+1) + 1 + m``.
+      The step scale is taken once per step, the moves apply in order as
+      plane expressions, and the result is scored and accepted once.
     """
     fused_chains_reference.calls += 1
     sc = [pk.scalars[i] for i in range(N_SCALARS)]
@@ -465,21 +474,14 @@ def fused_chains_reference(
     n_unf, n_objs = sc[S_NUNF], sc[S_NOBJ]
     gate = torch.where(n_unf > 0.0, 1.0, 0.0)
     n_unf_m1 = torch.clamp_min(n_unf - 1.0, 0.0)
+    n_moves, n_draws = pk.moves, pk.accept_draws
 
-    cur, _ = objective(ps[0], ps[1], ps[4], pk.track_off)
-    n_acc = torch.zeros_like(cur)
-    log_scale = torch.zeros_like(cur)
-    us_blk = None
-    for t in range(iterations):
-        if t % UNROLL == 0:
-            us_blk = uniform_block(seed, t // UNROLL, first_chain, n_chains, pose0.device)
-        us = us_blk[:, STEP_LANES * (t % UNROLL):STEP_LANES * (t % UNROLL + 1)]
-        x, y, rot = ps[0], ps[1], ps[4]
+    def uniforms(counter):
+        return uniform_block(seed, counter, first_chain, n_chains, pose0.device)
 
-        # proposal (fused_mh.py:1657-1723)
+    def move_of(us, scale):
+        """The move 8 uniforms drive (fused_mh.py:1478-1491, :1657-1693)."""
         move = torch.clamp_max((us[:, 0] * 3.0).to(torch.int32), 2)
-        u_acc = us[:, 1]
-        scale = torch.exp(log_scale) if pk.adapt else 1.0
         r1 = torch.sqrt(-2.0 * torch.log(us[:, 2]))
         r2 = torch.sqrt(-2.0 * torch.log(us[:, 4]))
         dx = (r1 * torch.cos(two_pi * us[:, 3]) * sc[S_SIGX] * scale)[:, None]
@@ -492,7 +494,11 @@ def fused_chains_reference(
         is_s = ((move == 2) & (n_objs >= 2)).float()[:, None]
         sel1 = ((rank == k1[:, None]) & (ok > 0)).float()
         sel2 = ((rank == k2[:, None]) & (ok > 0)).float()
+        return dx, dy, drot, is_t, is_r, is_s, sel1, sel2
 
+    def single_move(ps, dx, dy, drot, is_t, is_r, is_s, sel1, sel2):
+        """The star pose of one move (fused_mh.py:1695-1723)."""
+        x, y, rot = ps[0], ps[1], ps[4]
         w_t = is_t * sel1
         tdx = w_t * (torch.clamp(x + dx, sc[S_MNX], sc[S_MXX]) - x)
         tdy = w_t * (torch.clamp(y + dy, sc[S_MNY], sc[S_MXY]) - y)
@@ -503,7 +509,42 @@ def fused_chains_reference(
         r2v = torch.sum(sel2 * ps, 2, keepdim=True)
         zero_d = torch.zeros_like(x)
         tdelta = torch.stack([tdx, tdy, zero_d, zero_d, tdr, zero_d])
-        star = ps + gate * (tdelta + (sw * dsel) * (r2v - r1v))
+        return ps + gate * (tdelta + (sw * dsel) * (r2v - r1v))
+
+    def compound_move(st, dx, dy, drot, is_t, is_r, is_s, sel1, sel2):
+        """One move of a compound step on the star planes (fused_mh.py:1493-1512)."""
+        xc, yc, rc = st[0], st[1], st[4]
+        w_t = is_t * sel1 * gate
+        x_n = xc + w_t * (torch.clamp(xc + dx, sc[S_MNX], sc[S_MXX]) - xc)
+        y_n = yc + w_t * (torch.clamp(yc + dy, sc[S_MNY], sc[S_MXY]) - yc)
+        rot_n = rc + (is_r * sel1 * gate) * (geo.wrap_angle_once(rc + drot, pi) - rc)
+        st = torch.stack([x_n, y_n, st[2], st[3], rot_n, st[5]])
+        # a swap moves all six planes; on the other moves sw == 0
+        sw = is_s * gate
+        r1v = torch.sum(sel1 * st, 2, keepdim=True)
+        r2v = torch.sum(sel2 * st, 2, keepdim=True)
+        return st + (sw * (sel1 - sel2)) * (r2v - r1v)
+
+    cur, _ = objective(ps[0], ps[1], ps[4], pk.track_off)
+    n_acc = torch.zeros_like(cur)
+    log_scale = torch.zeros_like(cur)
+    lanes, unroll = step_layout(n_draws)
+    us_blk = None
+    for t in range(iterations):
+        scale = torch.exp(log_scale) if pk.adapt else 1.0
+        if n_moves == 1:
+            if t % unroll == 0:
+                us_blk = uniforms(t // unroll)
+            us = us_blk[:, lanes * (t % unroll):lanes * (t % unroll + 1)]
+            u_acc = us[:, 1] if n_draws == 1 else torch.amin(us[:, PROPOSAL_LANES:], 1)
+            star = single_move(ps, *move_of(us, scale))
+        else:
+            c0 = t * (n_moves + 1)
+            us0 = uniforms(c0)
+            u_acc = us0[:, 1] if n_draws == 1 else torch.amin(us0[:, 1:1 + n_draws], 1)
+            star = ps
+            for m in range(n_moves):
+                star = compound_move(star, *move_of(uniforms(c0 + 1 + m), scale))
 
         total_star, _ = objective(star[0], star[1], star[4], pk.track_off)
         ratio = torch.exp(torch.clamp_max(sc[S_BETA] * (total_star - cur), 0.0))
@@ -542,8 +583,12 @@ def fused_mh_cuda(pk: PackedScene, pose0: Tensor, seed: int, iterations: int,
     if pk.planes.device != pose0.device:
         raise ValueError("packed scene and pose0 are on different devices")
     # dynamic shared memory of one block, as csrc/fused_mh.cu lays it out:
-    # 10 planes of N floats, (6 + clearances) reduction rows of THREADS floats
-    smem = 4 * (10 * n + (6 + pk.n_clr) * THREADS)
+    # 10 planes of N floats (13 for a compound step, whose star pose holds
+    # all six planes), (6 + clearances) reduction rows of THREADS floats, and
+    # a compound step's move table
+    compound = pk.moves > 1
+    smem = 4 * ((13 if compound else 10) * n + (6 + pk.n_clr) * THREADS
+                + (N_MOVE_ROWS * THREADS if compound else 0))
     if smem > MAX_SMEM:
         raise ValueError(f"{n} objects x {pk.n_clr} clearances need {smem} B of shared "
                          f"memory per block; the limit is {MAX_SMEM}")
@@ -561,8 +606,8 @@ def fused_mh_cuda(pk: PackedScene, pose0: Tensor, seed: int, iterations: int,
     err = lib.mh_fused_run(
         *[ctypes.c_void_p(a.data_ptr()) for a in args],
         pk.rel_idx.shape[0], pk.ang_idx.shape[0], pk.n_clr, n, n_chains,
-        ctypes.c_uint32(seed & _M32), iterations, first_chain,
-        int(pk.parity), int(pk.track_off), int(pk.adapt),
+        ctypes.c_uint32(seed & M32), iterations, first_chain,
+        int(pk.parity), int(pk.track_off), int(pk.adapt), pk.moves, pk.accept_draws,
         ctypes.c_void_p(torch.cuda.current_stream(pose0.device).cuda_stream),
     )
     fused_mh_cuda.launches += 1
@@ -580,8 +625,8 @@ def uniform_block_cuda(seed: int, counter: int, first_chain: int, n_chains: int,
     lib = _build.load()
     out = torch.empty(n_chains, DRAW_LANES, dtype=torch.float32, device=device)
     err = lib.mh_uniform_block(
-        ctypes.c_void_p(out.data_ptr()), ctypes.c_uint32(seed & _M32),
-        ctypes.c_uint32(counter & _M32), first_chain, n_chains,
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_uint32(seed & M32),
+        ctypes.c_uint32(counter & M32), first_chain, n_chains,
         ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream),
     )
     if err:
@@ -607,11 +652,6 @@ def run_chains_fused(
     Returns ``(pose f32[n_chains, N, 6], breakdown f32[n_chains, 8],
     n_accept i32[n_chains], step_scale f32[n_chains])``.
     """
-    if cfg.n_moves_per_step > 1 or cfg.accept_draws > 1:
-        raise NotImplementedError(
-            "compound moves (n_moves_per_step > 1) and accept_draws > 1 change "
-            "the draw layout and are not ported yet (ROADMAP Queue 2, item A.g)"
-        )
     device = torch.device(device) if device is not None else pose0.device
     scene = scene.to(device)
     pose0 = pose0.to(device=device, dtype=torch.float32)

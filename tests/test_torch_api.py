@@ -54,6 +54,23 @@ def test_auto_is_fused_and_runs_the_plain_version_on_cpu():
     np.testing.assert_array_equal(res.costs, again.costs)
 
 
+def test_spec_without_device_needs_cuda(monkeypatch):
+    """A SceneSpec with no device runs on CUDA; without a card it raises and
+    never falls back to the plain version. A built Scene keeps its device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = TF.fused_chains_reference.calls
+    spec = mh_tpu_torch.demo_scene(6)
+    cfg = mh_tpu_torch.SamplerConfig(iterations=5, n_chains=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mh_tpu_torch.suggest_layouts(spec, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mh_tpu_torch.suggest_layouts(spec, cfg, device="cuda:0")
+    assert TF.fused_chains_reference.calls == calls
+    res = mh_tpu_torch.suggest_layouts(spec.build(), cfg, pose0=spec.initial_pose())
+    assert TF.fused_chains_reference.calls == calls + 1
+    assert res.costs.shape == (2, 8)
+
+
 def test_built_scene_with_pose0():
     spec = mh_tpu_torch.demo_scene(10)
     scene = spec.build(pad_objs=16)
@@ -93,10 +110,14 @@ def test_runs_with_jax_unimportable():
         sys.modules["jax"] = None
         sys.modules["mh_tpu"] = None
         import mh_tpu_torch
+        import mh_tpu_torch.kernels.pi_kernel
+        import mh_tpu_torch.utils.serialization
+        from mh_tpu_torch import cli
         res = mh_tpu_torch.suggest_layouts(
             mh_tpu_torch.demo_scene(8),
             mh_tpu_torch.SamplerConfig(iterations=5, n_chains=2), key=0, device="cpu")
         assert res.costs.shape == (2, 8)
+        assert cli.main(["pi", "--fused", "--samples", "4096", "--device", "cpu"]) == 0
         assert not any(m == "jax" or m.startswith(("jax.", "jaxlib", "mh_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
@@ -105,4 +126,4 @@ def test_runs_with_jax_unimportable():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.stdout.strip().splitlines()[-1] == "ok"

@@ -1,0 +1,138 @@
+"""The port's scene JSON format and ``python -m mh_tpu_torch`` against mh_tpu's.
+
+Scene files cross between the packages field for field. The CLI runs here
+with ``--device cpu`` (the kernels' plain PyTorch versions); its JSON is
+held to mh_tpu's fused engine with the tolerance of
+tests/test_torch_fused.py: accept counts equal and poses within 1e-4 except
+for at most 2 of 8 chains, costs of the rest within rtol 2e-4 / atol 2e-3.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import mh_tpu
+from mh_tpu import cli as jax_cli
+from mh_tpu.utils import serialization as JS
+import mh_tpu_torch
+from mh_tpu_torch import cli
+from mh_tpu_torch.utils import serialization as TS
+from test_torch_scene import assert_fields_equal, jax_scene_fields
+
+RTOL, ATOL, POSE_ATOL, MAX_DIVERGENT = 2e-4, 2e-3, 1e-4, 2
+LIVING_ROOM = Path(__file__).resolve().parents[1] / "examples" / "scenes" / "living_room.json"
+
+
+def spec_fields(spec) -> dict:
+    """A SceneSpec's fields as numpy arrays (clearances as quads + sources)."""
+    out = {}
+    for f in dataclasses.fields(spec):
+        v = getattr(spec, f.name)
+        if f.name == "clearances":
+            out["clearance_quads"] = np.asarray([np.asarray(q) for q, _ in v])
+            out["clearance_sources"] = np.asarray([s for _, s in v])
+        else:
+            out[f.name] = np.asarray(v)
+    return out
+
+
+def test_living_room_loads_into_equal_fields():
+    want, got = JS.load_scene(str(LIVING_ROOM)), TS.load_scene(str(LIVING_ROOM))
+    assert isinstance(got, mh_tpu_torch.SceneSpec)
+    assert_fields_equal(spec_fields(want), spec_fields(got))
+    assert_fields_equal(jax_scene_fields(want.build()), got.build().to_numpy())
+
+
+def test_port_save_scene_loads_in_mh_tpu(tmp_path):
+    spec = TS.load_scene(str(LIVING_ROOM))
+    path = str(tmp_path / "scene.json")
+    TS.save_scene(path, spec)
+    back = JS.load_scene(path)
+    assert_fields_equal(spec_fields(spec), spec_fields(back))
+    assert TS.scene_to_dict(spec) == JS.scene_to_dict(back)
+
+
+def test_scene_dict_rejects_bad_schema():
+    d = TS.scene_to_dict(mh_tpu_torch.demo_scene(4))
+    d["schema_version"] = 99
+    with pytest.raises(ValueError, match="schema"):
+        TS.scene_from_dict(d)
+
+
+def test_sampler_config_from_dict():
+    d = {"iterations": 7, "n_chains": 3, "mode": "fixed", "n_moves_per_step": 4,
+         "accept_draws": 2, "unknown": 1}
+    cfg = TS.sampler_config_from_dict(d)
+    assert cfg == mh_tpu_torch.SamplerConfig(
+        iterations=7, n_chains=3, mode=mh_tpu_torch.CostMode.FIXED, n_moves_per_step=4,
+        accept_draws=2)
+    assert dataclasses.asdict(JS.sampler_config_from_dict(d)).keys() == \
+        dataclasses.asdict(cfg).keys()
+
+
+@pytest.mark.parametrize("extra", [[], ["--moves-per-step", "4", "--accept-draws", "4"]])
+def test_cli_suggest_matches_mh_tpu(extra, capsys):
+    args = ["suggest", "--engine", "fused", "--objects", "16", "--chains", "8",
+            "--iters", "30", "--seed", "2", *extra]
+    assert jax_cli.main(args) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert cli.main([*args, "--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert got.keys() == want.keys() and got["costs"].keys() == want["costs"].keys()
+    gp, wp = np.asarray(got["points"]), np.asarray(want["points"])
+    assert gp.shape == wp.shape == (8, 16, 6)
+    ga, wa = np.asarray(got["accept_rate"]), np.asarray(want["accept_rate"])
+    same = (ga == wa) & (np.abs(gp - wp).max(axis=(1, 2)) <= POSE_ATOL)
+    assert (~same).sum() <= MAX_DIVERGENT
+    for name in want["costs"]:
+        np.testing.assert_allclose(np.asarray(got["costs"][name])[same],
+                                   np.asarray(want["costs"][name])[same], rtol=RTOL, atol=ATOL)
+
+
+def test_cli_suggest_scene_file_and_out(tmp_path):
+    scene_path = str(tmp_path / "scene.json")
+    TS.save_scene(scene_path, mh_tpu_torch.demo_scene(6))
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(json.dumps({"iterations": 5, "n_chains": 2, "mode": "fixed"}))
+    out = str(tmp_path / "res.json")
+    assert cli.main(["suggest", "--scene", scene_path, "--config", str(cfg_path),
+                     "--out", out, "--device", "cpu"]) == 0
+    data = json.loads(open(out).read())
+    assert np.asarray(data["points"]).shape == (2, 6, 6)
+    assert len(data["costs"]["total"]) == 2
+
+
+def test_cli_demo_pi_and_devices(capsys):
+    assert cli.main(["demo", "--objects", "8", "--chains", "2", "--iters", "10",
+                     "--moves-per-step", "2", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.count("Suggestion") == 2
+    assert cli.main(["pi", "--samples", str(1 << 16), "--device", "cpu"]) == 0
+    assert "pi ~=" in capsys.readouterr().out
+    assert cli.main(["pi", "--fused", "--samples", str(1 << 18), "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "pi ~=" in out and f"({1 << 18} samples, fused kernel)" in out
+    assert cli.main(["devices"]) == 0
+    assert "devices" in capsys.readouterr().out
+
+
+def test_cli_suggest_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(mh_tpu_torch.api.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["suggest", "--objects", "4", "--iters", "1"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["temper", "--objects", "6", "--iters", "0"],
+    ["smc", "--objects", "6", "--iters", "0"],
+    ["suggest", "--objects", "4", "--iters", "1", "--device", "cpu", "--engine", "xla"],
+    ["suggest", "--objects", "4", "--iters", "1", "--device", "cpu", "--objs-devices", "2"],
+    ["suggest", "--objects", "4", "--iters", "1", "--device", "cpu", "--log", "run.jsonl"],
+])
+def test_cli_unported_paths_raise(argv):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(argv)

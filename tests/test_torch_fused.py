@@ -22,6 +22,7 @@ on a card.
 from __future__ import annotations
 
 import dataclasses
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +34,7 @@ from mh_tpu.kernels import fused_mh as JF
 from mh_tpu.ops.costs import cost_terms as jax_cost_terms
 import mh_tpu_torch
 from mh_tpu_torch.kernels import _build
+from mh_tpu_torch.kernels import counter_rng
 from mh_tpu_torch.kernels import fused_mh as TF
 from test_costs import random_spec
 from test_torch_scene import to_torch_scene
@@ -94,7 +96,7 @@ def test_mul32_wraps_like_uint32():
     x = rng.integers(0, 2**32, size=4096, dtype=np.uint64)
     for c in (0xED5AD4BB, 0xAC4C1B51, 0x31848BAB, 0xFFFFFFFF, 1):
         want = (x * np.uint64(c)) & np.uint64(0xFFFFFFFF)  # uint64 wraps mod 2^64
-        got = TF._mul32(torch.as_tensor(x.astype(np.int64)), c).numpy()
+        got = counter_rng.mul32(torch.as_tensor(x.astype(np.int64)), c).numpy()
         np.testing.assert_array_equal(got.astype(np.uint64), want)
 
 
@@ -151,6 +153,49 @@ def test_reference_matches_jax_kernel_with_adaptation():
     jout, tout = run_both(spec.build(), pose0, "PARITY", 8, 40, seed=5, adapt=True)
     assert_chains_agree(jout, tout, 8)
     assert not np.allclose(tout[3], 1.0)
+
+
+@pytest.mark.parametrize("moves,draws", [(4, 1), (4, 4), (1, 16), (1, 30)])
+@pytest.mark.parametrize("mode,w_off", [("PARITY", 0.0), ("FIXED", -1.5)])
+def test_compound_moves_and_accept_draws_match_jax_kernel(moves, draws, mode, w_off):
+    """Compound block proposals (``iter_body_multi``) and the min-of-K accept
+    rule, in both draw layouts: K accept lanes beside each single move
+    (K=30 is 38 lanes a step, 3 steps a counter) and one counter per accept
+    block plus one per move."""
+    spec = mh_tpu.demo_scene(32)
+    js = dataclasses.replace(spec.build(), w_offlimits=jnp.float32(w_off))
+    pose0 = np.array(spec.initial_pose())
+    jout, tout = run_both(js, pose0, mode, 8, 40, seed=13,
+                          n_moves_per_step=moves, accept_draws=draws)
+    same = assert_chains_agree(jout, tout, 8)
+    assert same.sum() >= 6
+    assert 0 < tout[2].mean() < 40
+    assert_breakdowns_self_consistent(js, tout[0], tout[1], mode)
+
+
+@pytest.mark.parametrize("accept_draws,lanes,unroll",
+                         [(1, 8, 4), (16, 24, 4), (30, 38, 3), (64, 72, 1), (120, 128, 1)])
+def test_step_layout(accept_draws, lanes, unroll):
+    assert TF.step_layout(accept_draws) == (lanes, unroll)
+
+
+@pytest.mark.parametrize("moves", [1, 4])
+def test_accept_draws_lifts_acceptance(moves):
+    """K accept draws (the Kernel.cu:819 per-thread accept) lift the realized
+    acceptance toward 1 - (1 - p)^K, as tests/test_fused_kernel.py:218-245
+    holds the JAX kernel to."""
+    spec = mh_tpu_torch.demo_scene(32)
+    scene, pose0 = spec.build(), spec.initial_pose()
+    iters, n_chains = 300, 64
+    rates = []
+    for draws in (1, 16):
+        cfg = mh_tpu_torch.SamplerConfig(n_moves_per_step=moves, accept_draws=draws)
+        _, _, acc, _ = TF.run_chains_fused(5, pose0, scene, cfg, n_chains, iters)
+        rates.append(acc.double().mean().item() / iters)
+    r1, rk = rates
+    min_lift = 0.08 if moves == 1 else 0.05
+    assert rk > r1 + min_lift, (r1, rk)
+    assert rk <= 1.0
 
 
 def test_zero_iterations_is_identity():
@@ -212,12 +257,14 @@ def test_pack_scene_rejects_out_of_range_indices(field):
         TF.pack_scene(bad, mh_tpu_torch.SamplerConfig(mode=mh_tpu_torch.CostMode.FIXED))
 
 
-@pytest.mark.parametrize("kw", [dict(n_moves_per_step=2), dict(accept_draws=4)])
-def test_unported_draw_layouts_raise(kw):
+@pytest.mark.parametrize("draws", [0, 121])
+def test_accept_draws_out_of_range_raise(draws):
+    """One draw counter holds 8 proposal lanes and at most 120 accept lanes
+    (mh_tpu/kernels/fused_mh.py:2356); the config refuses K < 1 itself."""
     spec = mh_tpu_torch.demo_scene(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="accept_draws"):
         TF.run_chains_fused(0, spec.initial_pose(), spec.build(),
-                            mh_tpu_torch.SamplerConfig(**kw), 4, 10)
+                            mh_tpu_torch.SamplerConfig(accept_draws=draws), 4, 10)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
@@ -235,8 +282,18 @@ def test_build_raises_without_nvcc(monkeypatch):
         _build.nvcc()
 
 
-def test_library_path_tracks_sources():
+def test_library_path_tracks_sources(tmp_path, monkeypatch):
+    """One library for every source, keyed by their text and the shared headers."""
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert path == _build.library_path()
-    assert [p.name for p in _build._sources()] == ["fused_mh.cu"]
+    assert [p.name for p in _build._sources()] == ["fused_mh.cu", "pi_kernel.cu"]
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.SRC_DIR, src)
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    assert _build.library_path() == path
+    for name in ("pi_kernel.cu", "counter_rng.cuh"):
+        before = _build.library_path()
+        (src / name).write_text((src / name).read_text() + "\n")
+        assert _build.library_path() != before
