@@ -36,8 +36,42 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    the plain version, and land within 6 sigma of pi;
 7. cli: ``python -m mh_tpu_torch pi --fused`` and ``suggest
    --moves-per-step 4`` in subprocesses;
-8. time: CUDA-event times, as the slope of the minimum over repeats
-   against the step or sample count, for each kernel and its plain version.
+8. prng: the torch engine's threefry stream (``sampler/prng.py``) gives the
+   same bits on the card as on the CPU: keys, fold_in with data >= 2^31,
+   uniforms of the engine's shapes, K = 64 accept draws, bounded draws;
+9. torch_engine_vs_cpu: ``run_chains`` at ``demo_scene(32)``, 64 chains, 50
+   steps on CUDA against the same call on the CPU, in PARITY, FIXED,
+   weighted FIXED and (M, K) = (4, 4). The uniforms are equal (integer
+   stream); CUDA's transcendentals differ by ulps, so a chain whose accept
+   ratio lands within an ulp of its uniform may part: at most 2 of the 64
+   chains (every run so far read 0), the rest with equal accept counts,
+   poses within 1e-4 and costs within rtol=2e-4 / atol=2e-3;
+10. main_path_torch: ``suggest_layouts(demo_scene(100), SamplerConfig(
+   iterations=1000, n_chains=1024), key=0, engine="torch", device="cuda")``,
+   then ``engine="torch_graph"`` (a CUDA graph, bitwise equal to torch),
+   ``log_every=100`` on both engines (bitwise equal to one shot, 10
+   ``round`` events), the block layout (M = K = 64) over 50 steps on both
+   engines (bitwise equal; also at beta=1e-3 with adaptation, where the
+   chains accept), a rerun (same bits), breakdowns against ``cost_terms``
+   on every final pose, and ``engine="auto"`` on CUDA, which must launch
+   the fused kernel, and past the kernel's limit (121 accept draws) must
+   take ``torch_graph`` with no kernel launch;
+11. tempering_smc: BASELINE config 5 at ``bench.py:330-378``'s sizes
+   (``demo_scene(32)``, 64 replicas, ``exchange_every=5``, 24 rounds, with
+   and without ``adapt_ladder``; SMC with 64 particles, 8 stages, 5 mutate
+   steps, with and without ``adaptive``) on CUDA against the CPU (at most
+   1 of 24 rounds' swap rates may differ), and ``python -m mh_tpu_torch
+   temper`` / ``smc`` in subprocesses;
+12. time: CUDA-event times, as the slope of the minimum over repeats
+   against the step or sample count, for each kernel and its plain version,
+   for the torch engine eager and as a CUDA graph beside the fused kernel
+   (100 objects x 1024 chains, one move and M = 64, with the graph's
+   capture cost on the host clock; and the serve comparison at smaller
+   sizes), tempering sweeps/s and SMC wall time;
+13. profile: ``torch.profiler`` over 10 steps of the torch engine at 100
+   objects x 1024 chains, one move and M = K = 64, eager and as a CUDA
+   graph: kernels per step, device-busy share of the wall time, top
+   kernels.
 
 Then one JSON line describing the kernels and, last, the device line.
 Without a CUDA device, or without the package beside this script, it
@@ -54,10 +88,15 @@ import math
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 RTOL, ATOL = 2e-4, 2e-3
+# CUDA against the CPU on one integer stream: every chip run so far read 0
+# of 64 chains parting and 0 of 24 tempering rounds differing (PERF.md), so
+# a chain may part only where an ulp of logf/expf/cosf flips an accept
+POSE_ATOL, MAX_DIVERGENT_CHAINS, MAX_ROUNDS_DIFFERING = 1e-4, 2, 1
 COMPOUND_CASES = ((4, 1), (4, 4), (1, 16), (1, 30))  # (moves per step, accept draws)
 BLOCK = dict(n_moves_per_step=64, accept_draws=64)  # BASELINE config 3, layout_block
 
@@ -140,6 +179,75 @@ def check_self_consistent(pose, breakdown, scene, mode) -> float:
     ref = cost_terms(pose, scene, mode).as_vector()
     torch.testing.assert_close(breakdown, ref, rtol=RTOL, atol=ATOL)
     return (breakdown - ref).abs().max().item()
+
+
+def states_agree(name: str, got, want) -> dict:
+    """A CUDA run of the torch engine against the same run on the CPU.
+
+    At most MAX_DIVERGENT_CHAINS chains may part; the rest have equal
+    accept counts, poses within POSE_ATOL and costs within RTOL / ATOL.
+    Returns the fields a comparison line prints."""
+    import torch
+
+    gp, wp = got.pose.cpu(), want.pose.cpu()
+    gap = (gp - wp).abs().flatten(1).amax(1)
+    acc_differs = got.n_accept.cpu() != want.n_accept.cpu()
+    same = ~acc_differs & (gap <= POSE_ATOL)
+    n_div = int((~same).sum())
+    if n_div > MAX_DIVERGENT_CHAINS:
+        raise AssertionError(f"{name}: {n_div} of {len(same)} chains part from the CPU run")
+    gc, wc = got.costs.as_vector().cpu(), want.costs.as_vector().cpu()
+    torch.testing.assert_close(gc[same], wc[same], rtol=RTOL, atol=ATOL)
+    return dict(chains=len(same), accept_counts_differ=int(acc_differs.sum()),
+                divergent_chains=n_div, max_pose_gap=gap.max().item(),
+                max_pose_gap_agreeing=gap[same].max().item() if bool(same.any()) else 0.0,
+                max_cost_gap_agreeing=(gc[same] - wc[same]).abs().max().item()
+                if bool(same.any()) else 0.0,
+                chains_accepting=int((got.n_accept > 0).sum()))
+
+
+def same_bits(a, b) -> bool:
+    """Two LayoutResults (or numpy arrays) equal bit for bit."""
+    import numpy as np
+
+    if hasattr(a, "points"):
+        return all(same_bits(getattr(a, f), getattr(b, f))
+                   for f in ("points", "costs", "accept_rate", "step_scale"))
+    return np.asarray(a).tobytes() == np.asarray(b).tobytes()
+
+
+def profile_steps(scene, pose0, cfg, graph: bool, steps: int) -> dict:
+    """``torch.profiler`` over ``steps`` steps of the torch engine (eager, or
+    replayed as a CUDA graph), after two unprofiled steps: kernels per
+    step, device-busy share of the wall time, and the top kernels by
+    device time (per step, milliseconds)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mh_tpu_torch.sampler import mh as M
+    from mh_tpu_torch.sampler import prng
+
+    step = M.ChainStep(scene, cfg)
+    advance = M.step_advance(step, graph)
+    state = advance(step.init(*M.chain_starts(prng.key(0, scene.device), pose0, scene,
+                                              cfg.n_chains)), 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        advance(state, steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name[:70], (0, 0.0))
+        by_name[e.name[:70]] = (n + 1, t + e.device_time_total / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return dict(steps=steps, wall_ms=wall_ms, kernels_per_step=len(kernels) / steps,
+                device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+                top=[(k, n / steps, t / steps) for k, (n, t) in top])
 
 
 def run_main_path(name, spec, cfg, device, counters):
@@ -307,7 +415,186 @@ def main() -> int:
                                  f"\n{proc.stderr[-4000:]}")
         say("cli", argv=argv, rc=proc.returncode, stdout_bytes=len(proc.stdout))
 
-    # 8. time (CUDA events; slope over step or sample counts, minimum of repeats)
+    # 8. prng: the torch engine's threefry stream on the card against the CPU
+    import numpy as np
+
+    from mh_tpu_torch.api import auto_engine
+    from mh_tpu_torch.sampler import mh as M
+    from mh_tpu_torch.sampler import prng
+    from mh_tpu_torch.sampler.smc import run_smc
+    from mh_tpu_torch.sampler.tempering import run_tempered
+
+    cpu = torch.device("cpu")
+
+    def prng_draws(d):
+        out = []
+        for seed in (0, 7, -1, 2**31 + 5):
+            k = prng.key(seed, d)
+            chains = prng.fold_in(k, torch.arange(1024, device=d))
+            steps = prng.fold_in(chains, torch.arange(1024, device=d) * 4099 + 2**31)
+            lo, hi = torch.tensor(-3.0, device=d), torch.tensor(7.5, device=d)
+            out += [prng.split(k, 5), chains, steps, prng.uniform(steps, (1, 8)),
+                    prng.uniform(steps, (64, 8)), prng.uniform(prng.fold_in(steps, 1), (64,)),
+                    prng.uniform(chains, (100,), lo, hi), prng.uniform(chains, (100,), 0.0, 6.2832)]
+        return out
+
+    n_draws = 0
+    for g, w in zip(prng_draws(dev), prng_draws(cpu)):
+        g = g.cpu()
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if not torch.equal(g, w):
+            raise AssertionError("threefry bits differ between CUDA and the CPU")
+        n_draws += g.numel()
+    say("prng", values_compared=n_draws, bits_equal=True)
+
+    # 9. the torch chain engine on CUDA against the same call on the CPU
+    spec32 = demo_scene(32)
+    for case, mode, w_off, kw in (("parity", CostMode.PARITY, 0.0, {}),
+                                  ("fixed", CostMode.FIXED, 0.0, {}),
+                                  ("fixed_weighted", CostMode.FIXED, -1.5, {}),
+                                  ("block_4x4", CostMode.PARITY, 0.0,
+                                   dict(n_moves_per_step=4, accept_draws=4))):
+        ecfg = SamplerConfig(iterations=50, n_chains=64, mode=mode, **kw)
+        runs = {}
+        for d in (dev, cpu):
+            sc = dataclasses.replace(spec32.build(device=d), w_offlimits=torch.tensor(w_off, device=d))
+            runs[d.type], _ = M.run_chains(prng.key(5, d), spec32.initial_pose(device=d), sc, ecfg)
+        say("torch_engine_vs_cpu", case=case, objs=32, steps=50,
+            **states_agree(case, runs["cuda"], runs["cpu"]))
+
+    # 10. the torch engine's main path at full width, and auto on CUDA
+    from mh_tpu_torch import suggest_layouts
+
+    all_counters = (*fused_counters, (P.pi_hits_cuda, "launches"), (P.pi_hits_reference, "calls"))
+
+    def zero_counts():
+        for fn, attr in all_counters:
+            setattr(fn, attr, 0)
+
+    def read_counts():
+        return {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in all_counters}
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def check_result(name, res, rcfg):
+        if not (np.isfinite(res.costs).all() and np.isfinite(res.points).all()):
+            raise AssertionError(f"{name} returned non-finite values")
+        acc = float(res.accept_rate.mean())
+        accepting = int((res.accept_rate > 0).sum())
+        # the block layout at beta = 2 accepts ~3e-5 of its steps (PERF.md),
+        # so only the other paths must show accepting chains
+        if not 0.0 <= acc < 1.0 or (name.split("/")[0] != "block" and
+                                     accepting < rcfg.n_chains // 2):
+            raise AssertionError(f"{name}: mean accept rate {acc}, {accepting} chains accepting")
+        err = check_self_consistent(torch.as_tensor(res.points, device=dev),
+                                    torch.as_tensor(res.costs, device=dev), scene, rcfg.mode)
+        return dict(mean_accept=acc, chains_accepting=accepting,
+                    breakdown_vs_cost_terms_max_abs=err, mean_total=float(res.costs[:, 0].mean()))
+
+    block50 = SamplerConfig(iterations=50, n_chains=1024, **BLOCK)
+    torch_runs = {}
+    for name, rcfg in (("single", cfg), ("block", block50),
+                       ("block_hot", dataclasses.replace(block50, beta=1e-3, adapt=True))):
+        for engine in ("torch", "torch_graph"):
+            zero_counts()
+            res, secs = wall(lambda: suggest_layouts(head, rcfg, key=0, engine=engine,
+                                                     device="cuda"))
+            counts = read_counts()
+            if any(counts.values()):
+                raise AssertionError(f"the {engine} engine launched a kernel: {counts}")
+            torch_runs[name, engine] = res
+            say("main_path_torch", path=name, engine=engine, objs=100, chains=rcfg.n_chains,
+                steps=rcfg.iterations, moves_per_step=rcfg.n_moves_per_step,
+                accept_draws=rcfg.accept_draws, wall_s=secs, **counts,
+                **check_result(f"{name}/{engine}", res, rcfg))
+        if not same_bits(torch_runs[name, "torch"], torch_runs[name, "torch_graph"]):
+            raise AssertionError(f"{name}: torch_graph differs from torch")
+    again = suggest_layouts(head, cfg, key=0, engine="torch", device="cuda")
+    if not same_bits(again, torch_runs["single", "torch"]):
+        raise AssertionError("a rerun differs from the one-shot torch run")
+    for engine in ("torch", "torch_graph"):
+        log = io.StringIO()
+        logged = suggest_layouts(head, cfg, key=0, engine=engine, device="cuda", log=log,
+                                 log_every=100)
+        events = [json.loads(line)["event"] for line in log.getvalue().splitlines()]
+        if not same_bits(logged, torch_runs["single", "torch"]):
+            raise AssertionError(f"a logged {engine} run differs from the one-shot torch run")
+        if events.count("round") != 10 or events[0] != "run_config" or events[-1] != "result":
+            raise AssertionError(f"logged {engine} run events {events}")
+    n_clr = int((scene.clr_mask > 0).sum())
+    chosen = auto_engine(dev, cfg, scene.n_pad_objs, n_clr)
+    zero_counts()
+    auto_res = suggest_layouts(head, cfg, key=0, device="cuda")
+    auto_counts = read_counts()
+    if chosen != "fused" or auto_counts["fused_mh_cuda.launches"] < 1 or \
+            auto_counts["fused_chains_reference.calls"]:
+        raise AssertionError(f"auto chose {chosen}: {auto_counts}")
+    fused_launches += auto_counts["fused_mh_cuda.launches"]
+    # past the kernel's limit of 120 accept draws auto takes the CUDA graph
+    wide = SamplerConfig(iterations=20, n_chains=1024, accept_draws=121)
+    wide_chosen = auto_engine(dev, wide, scene.n_pad_objs, n_clr)
+    zero_counts()
+    wide_res = suggest_layouts(head, wide, key=0, device="cuda")
+    wide_counts = read_counts()
+    if wide_chosen != "torch_graph" or any(wide_counts.values()) or not same_bits(
+            wide_res, suggest_layouts(head, wide, key=0, engine="torch", device="cuda")):
+        raise AssertionError(f"auto past the kernel's limit chose {wide_chosen}: {wide_counts}")
+    say("main_path_torch", graph_equals_eager_bitwise=True, rerun_bitwise=True,
+        logged_equals_one_shot_bitwise=True, round_events=events.count("round"),
+        auto_engine=chosen, auto_counts=auto_counts,
+        auto_mean_accept=float(auto_res.accept_rate.mean()),
+        auto_engine_121_draws=wide_chosen, auto_121_draws_equals_torch_bitwise=True,
+        auto_121_draws_mean_accept=float(wide_res.accept_rate.mean()))
+
+    # 11. tempering and SMC (BASELINE config 5, bench.py:330-378) on CUDA vs the CPU
+    tcfg = SamplerConfig()
+    for adapt in (False, True):
+        outs = {d.type: run_tempered(prng.key(0, d), spec32.initial_pose(device=d),
+                                     spec32.build(device=d), tcfg, None, 64, exchange_every=5,
+                                     rounds=24, adapt_ladder=adapt) for d in (dev, cpu)}
+        rates, rates_cpu = outs["cuda"][1].cpu().numpy(), outs["cpu"][1].numpy()
+        rounds_differing = int((rates != rates_cpu).sum())
+        if rounds_differing > MAX_ROUNDS_DIFFERING:
+            raise AssertionError(f"tempering: {rounds_differing} rounds differ from the CPU")
+        extra = {}
+        if adapt:
+            b, bc = outs["cuda"][2].cpu().numpy(), outs["cpu"][2].numpy()
+            extra = dict(betas=b.tolist(), betas_max_rel_gap=float(np.abs(b / bc - 1).max()))
+        say("tempering", replicas=64, objs=32, exchange_every=5, rounds=24, adapt_ladder=adapt,
+            swap_rates=rates.tolist(), rounds_differing=rounds_differing, **extra,
+            **states_agree("tempering", outs["cuda"][0], outs["cpu"][0]))
+    for adaptive in (False, True):
+        outs = {d.type: run_smc(prng.key(0, d), spec32.initial_pose(device=d),
+                                spec32.build(device=d), tcfg, None, 64, n_stages=8,
+                                mutate_steps=5, adaptive=adaptive) for d in (dev, cpu)}
+        gd, wd = ({k: v.cpu().numpy() for k, v in outs[t][1].items()} for t in ("cuda", "cpu"))
+        np.testing.assert_array_equal(gd["resampled"], wd["resampled"])
+        np.testing.assert_allclose(gd["ess"], wd["ess"], rtol=1e-4)
+        np.testing.assert_allclose(gd["betas"], wd["betas"], rtol=1e-5)
+        np.testing.assert_allclose(gd["log_evidence"], wd["log_evidence"], rtol=1e-5)
+        say("smc", particles=64, objs=32, stages=8, mutate_steps=5, adaptive=adaptive,
+            log_evidence=float(gd["log_evidence"]), ess=gd["ess"].tolist(),
+            resampled=gd["resampled"].astype(int).tolist(), betas=gd["betas"].tolist(),
+            **states_agree("smc", outs["cuda"][0], outs["cpu"][0]))
+    for argv, keys in ((["temper", "--objects", "32", "--replicas", "64", "--rounds", "24"],
+                        {"swap_rates", "target_total_cost"}),
+                       (["smc", "--objects", "32", "--particles", "64", "--stages", "8",
+                         "--adaptive"],
+                        {"log_evidence", "betas", "ess", "resampled", "best_total_cost"})):
+        proc = subprocess.run([sys.executable, "-m", "mh_tpu_torch", *argv], cwd=HERE, env=env,
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode or set(json.loads(proc.stdout)) != keys:
+            raise AssertionError(f"{argv}: rc {proc.returncode}\n{proc.stdout[-2000:]}"
+                                 f"\n{proc.stderr[-4000:]}")
+        say("cli", argv=argv, rc=proc.returncode, output=json.loads(proc.stdout))
+
+    # 12. time (CUDA events; slope over step or sample counts, minimum of repeats)
     def fused_time(kpk, ksteps, psteps, repeats):
         kt = [events_ms(lambda s=s: F.fused_mh_cuda(kpk, pose0, 0, s), repeats) for s in ksteps]
         pt = [events_ms(lambda s=s: F.fused_chains_reference(kpk, pose0, 0, s), 2)
@@ -341,6 +628,86 @@ def main() -> int:
         kernel_samples_per_s=1e3 / slope(pks, pkt), plain_samples_per_s=1e3 / slope(pps, ppt),
         kernel_ms=dict(zip(map(str, pks), pkt)), plain_ms=dict(zip(map(str, pps), ppt)),
         kernel_ms_2_32=pi_ms, plain_ms_2_32=pi_plain_ms)
+
+    # the torch engine, eager and as a CUDA graph, beside the fused kernel
+    key0 = prng.key(0, dev)
+    pose100 = head.initial_pose(device=dev)
+
+    def wall_ms(fn, repeats):
+        """Minimum over ``repeats`` of ``fn()``'s host wall time, synchronized."""
+        return min(wall(fn)[1] for _ in range(repeats)) * 1e3
+
+    def engine_time(kcfg, eager_steps, graph_steps):
+        def eager(n):
+            return M.run_chains(key0, pose100, scene, dataclasses.replace(kcfg, iterations=n))
+
+        runner = M.compile_chains(scene, kcfg)
+        # the capture: the first call of a runner captures the step; the
+        # host clock, since capture is host work
+        first_ms = wall_ms(lambda: runner(key0, pose100, iterations=1), 1)
+        calls = dict(first_graph_call_1_step_ms=first_ms,
+                     graph_call_1_step_ms=wall_ms(lambda: runner(key0, pose100, iterations=1), 3),
+                     eager_call_1_step_ms=wall_ms(lambda: eager(1), 3))
+        et = [events_ms(lambda n=n: eager(n), 2) for n in eager_steps]
+        gt = [events_ms(lambda n=n: runner(key0, pose100, iterations=n), 3) for n in graph_steps]
+        return slope(eager_steps, et), slope(graph_steps, gt), et, gt, calls
+
+    torch_ms = {}
+    for name, kcfg, es, gs, fused_step in (
+            ("single", cfg, (5, 15, 25), (50, 150, 250), k_step),
+            ("block", block_cfg, (1, 2, 3), (5, 10, 20), bk_step)):
+        e_step, g_step, et, gt, calls = engine_time(kcfg, es, gs)
+        torch_ms[name] = (e_step, g_step)
+        proposals = kcfg.n_chains * kcfg.n_moves_per_step
+        capture_ms = calls["first_graph_call_1_step_ms"] - calls["graph_call_1_step_ms"]
+        # steps at which a capturing graph call costs what an eager call does
+        break_even = 1 + max(0.0, calls["first_graph_call_1_step_ms"]
+                             - calls["eager_call_1_step_ms"]) / (e_step - g_step)
+        say("time", card=smi, objs=100, chains=kcfg.n_chains,
+            moves_per_step=kcfg.n_moves_per_step, accept_draws=kcfg.accept_draws,
+            torch_ms_per_step=e_step, torch_proposals_per_s=proposals / (e_step * 1e-3),
+            torch_graph_ms_per_step=g_step,
+            torch_graph_proposals_per_s=proposals / (g_step * 1e-3),
+            fused_ms_per_step=fused_step, fused_proposals_per_s=proposals / (fused_step * 1e-3),
+            graph_capture_ms=capture_ms, graph_break_even_steps=break_even, **calls,
+            torch_ms=dict(zip(map(str, es), et)), torch_graph_ms=dict(zip(map(str, gs), gt)))
+
+    # serve: is the CUDA graph faster than the fused kernel at any size?
+    for n_objs, n_chains in ((10, 1), (10, 64), (32, 64), (32, 1024)):
+        sspec = demo_scene(n_objs)
+        sscene = sspec.build(device=dev)
+        scfg = SamplerConfig(iterations=1, n_chains=n_chains)
+        spk = F.pack_scene(sscene, scfg)
+        spose = sspec.initial_pose(device=dev).expand(n_chains, n_objs, 6).contiguous()
+        fs = (100, 400, 700)
+        ft = [events_ms(lambda n=n: F.fused_mh_cuda(spk, spose, 0, n), 3) for n in fs]
+        runner = M.compile_chains(sscene, scfg)
+        runner(key0, spose, iterations=1)
+        gs = (50, 150, 250)
+        gt = [events_ms(lambda n=n: runner(key0, spose, iterations=n), 3) for n in gs]
+        f_step, g_step = slope(fs, ft), slope(gs, gt)
+        say("time_serve", card=smi, objs=n_objs, chains=n_chains, fused_ms_per_step=f_step,
+            torch_graph_ms_per_step=g_step, graph_faster=g_step < f_step,
+            fused_ms=dict(zip(map(str, fs), ft)), torch_graph_ms=dict(zip(map(str, gs), gt)))
+
+    # tempering sweeps/s as bench.py:374 counts them; SMC wall time
+    pose32, scene32 = spec32.initial_pose(device=dev), spec32.build(device=dev)
+    rounds = (4, 14, 24)
+    rt = [events_ms(lambda r=r: run_tempered(prng.key(0, dev), pose32, scene32, tcfg, None, 64,
+                                             exchange_every=5, rounds=r), 3) for r in rounds]
+    per_step = slope(rounds, rt) / 5.0
+    smc_ms = events_ms(lambda: run_smc(prng.key(0, dev), pose32, scene32, tcfg, None, 64,
+                                       n_stages=8, mutate_steps=5), 2)
+    say("time_tempering_smc", card=smi, objs=32, replicas=64,
+        tempering_sweeps_per_s=64 / (per_step * 1e-3), tempering_ms_per_step=per_step,
+        tempering_ms=dict(zip(map(str, rounds), rt)), smc_wall_ms=smc_ms)
+
+    # 13. profile: what the torch engine's step is made of on the card
+    for name, kcfg in (("single", cfg), ("block", block_cfg)):
+        for graph in (False, True):
+            say("profile", card=smi, objs=100, chains=kcfg.n_chains, path=name,
+                mode="graph" if graph else "eager",
+                **profile_steps(scene, pose100, kcfg, graph, steps=10))
 
     if "jax" in sys.modules or "mh_tpu" in sys.modules:
         raise AssertionError("the port imported JAX or mh_tpu")

@@ -2,12 +2,15 @@
 
 The port of ``mh_tpu`` to one NVIDIA Hopper GPU, with the same public
 names for what it has so far: the scene model and its JSON format, the
-seven-term objective in PARITY and FIXED modes, ``suggest_layouts`` over
-the fused MH chain kernel (``kernels/csrc/fused_mh.cu``; single or compound
-moves, one or K accept draws), the Monte-Carlo pi estimator with its CUDA
-kernel (``kernels/csrc/pi_kernel.cu``), and the ``python -m mh_tpu_torch``
-command line. Each kernel has a plain PyTorch version that runs on the CPU.
-It imports neither ``jax`` nor ``mh_tpu``.
+seven-term objective in PARITY and FIXED modes, the chain engine on
+``jax.random``'s threefry stream (``sampler/``: ``run_chains``,
+``compile_chains`` as a CUDA graph, parallel tempering and annealed SMC on
+one device), ``suggest_layouts`` over that engine or the fused MH chain
+kernel (``kernels/csrc/fused_mh.cu``; single or compound moves, one or K
+accept draws), JSONL run logging, the Monte-Carlo pi estimator with its
+CUDA kernel (``kernels/csrc/pi_kernel.cu``), and the ``python -m
+mh_tpu_torch`` command line. Each kernel has a plain PyTorch version that
+runs on the CPU. It imports neither ``jax`` nor ``mh_tpu``.
 """
 
 from mh_tpu_torch.config import CostMode, SamplerConfig, REF_PI, REF_BETA
@@ -20,6 +23,14 @@ from mh_tpu_torch.models.scene import (
     scene_from_numpy,
 )
 from mh_tpu_torch.ops.costs import CostBreakdown, cost_terms, total_cost
+from mh_tpu_torch.sampler.mh import (
+    MHState,
+    compile_chains,
+    mh_init,
+    mh_step,
+    run_chain,
+    run_chains,
+)
 from mh_tpu_torch.api import LayoutResult, suggest_layouts
 from mh_tpu_torch.models.pi import estimate_pi
 
@@ -39,6 +50,12 @@ __all__ = [
     "CostBreakdown",
     "cost_terms",
     "total_cost",
+    "MHState",
+    "compile_chains",
+    "mh_init",
+    "mh_step",
+    "run_chain",
+    "run_chains",
     "LayoutResult",
     "suggest_layouts",
     "estimate_pi",

@@ -10,8 +10,10 @@ Commands:
   demo      run + pretty-print the reference demo scene
   pi        Monte-Carlo pi estimate (plain PyTorch; --fused for the CUDA kernel)
   devices   report the CUDA devices
-  temper    parallel tempering (not ported yet: ROADMAP Queue 1.9)
-  smc       annealed SMC (not ported yet: ROADMAP Queue 1.9)
+  temper    parallel tempering on one device (--adapt-ladder for the
+            swap-rate-adaptive ladder)
+  smc       annealed SMC on one device (--adaptive --init prior for
+            ESS-targeted tempering from the beta=0 prior)
 """
 
 from __future__ import annotations
@@ -48,11 +50,12 @@ def _add_sampler_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--config", help="JSON file of SamplerConfig overrides")
     p.add_argument(
         "--log", help="append a structured JSONL event stream here "
-                      "(not ported yet: ROADMAP Queue 1.11)",
+                      "(run_config / round / result events; utils/runlog)",
     )
     p.add_argument(
         "--log-every", type=int, default=0,
-        help="emit a `round` stats event every N steps (with --log)",
+        help="emit a `round` stats event every N steps (default: "
+             "iterations/10 when --log is set; torch engine only)",
     )
     _add_device_flag(p)
 
@@ -76,8 +79,10 @@ def _sampler_config(args):
 
 
 def _log_kwargs(args) -> dict:
-    """--log/--log-every -> suggest_layouts logging kwargs (which raise
-    NotImplementedError until run logging is ported)."""
+    """--log/--log-every -> suggest_layouts logging kwargs.
+
+    With --log but no --log-every, default to ~10 rounds of events.
+    """
     if not getattr(args, "log", None):
         return {}
     every = getattr(args, "log_every", 0) or max(args.iters // 10, 1)
@@ -165,13 +170,77 @@ def cmd_devices(_args) -> int:
     return 0
 
 
-def cmd_not_ported(args) -> int:
-    raise NotImplementedError(
-        f"{args.command}: tempering and SMC are not ported yet (ROADMAP Queue 1.9)"
+def _scene_on_device(args):
+    """(initial pose, built scene) of --scene or the demo scene on --device."""
+    import torch
+
+    from mh_tpu_torch.models.scene import demo_scene
+    from mh_tpu_torch.utils.serialization import load_scene
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
+    spec = load_scene(args.scene) if args.scene else demo_scene(args.objects)
+    return spec.initial_pose(device=device), spec.build(device=device)
+
+
+def _write_log(args, engine: str, n_chains: int, result: dict) -> None:
+    if args.log:
+        from mh_tpu_torch.utils.runlog import RunLogger
+
+        with RunLogger(args.log) as lg:
+            lg.log_config(_sampler_config(args), engine=engine, n_objs=args.objects,
+                          n_chains=n_chains)
+            lg.event("result", engine=engine, **result)
+
+
+def cmd_temper(args) -> int:
+    from mh_tpu_torch.sampler import prng
+    from mh_tpu_torch.sampler.tempering import run_tempered
+
+    pose0, scene = _scene_on_device(args)
+    out = run_tempered(
+        prng.key(args.seed), pose0, scene, _sampler_config(args), None,
+        n_replicas=args.replicas, exchange_every=args.exchange_every, rounds=args.rounds,
+        adapt_ladder=args.adapt_ladder,
     )
+    states, swap_rates = out[0], out[1]
+    result = {
+        "swap_rates": swap_rates.cpu().numpy().astype(np.float64).tolist(),
+        "target_total_cost": float(states.costs.total[-1]),
+    }
+    if args.adapt_ladder:
+        result["betas"] = out[2].cpu().numpy().astype(np.float64).tolist()
+    _write_log(args, "tempering", args.replicas, result)
+    print(json.dumps(result))
+    return 0
+
+
+def cmd_smc(args) -> int:
+    from mh_tpu_torch.sampler import prng
+    from mh_tpu_torch.sampler.smc import run_smc
+
+    pose0, scene = _scene_on_device(args)
+    states, diag = run_smc(
+        prng.key(args.seed), pose0, scene, _sampler_config(args), None,
+        n_particles=args.particles, n_stages=args.stages, mutate_steps=args.mutate_steps,
+        adaptive=args.adaptive, init=args.init,
+    )
+    result = {
+        "log_evidence": float(diag["log_evidence"]),
+        "betas": diag["betas"].cpu().numpy().astype(np.float64).tolist(),
+        "ess": diag["ess"].cpu().numpy().astype(np.float64).tolist(),
+        "resampled": diag["resampled"].cpu().numpy().astype(int).tolist(),
+        "best_total_cost": float(states.costs.total.max()),
+    }
+    _write_log(args, "smc", args.particles, result)
+    print(json.dumps(result))
+    return 0
 
 
 def main(argv=None) -> int:
+    from mh_tpu_torch.api import ENGINE_ALIASES, ENGINES
+
     ap = argparse.ArgumentParser(prog="mh_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
 
@@ -181,12 +250,14 @@ def main(argv=None) -> int:
     p.add_argument("--out", help="write results JSON here")
     p.add_argument(
         "--engine", default="auto",
-        choices=["auto", "xla", "xla_specialized", "fused"],
-        help="sampling engine (see suggest_layouts; only the fused kernel is ported)",
+        choices=[*ENGINES, *ENGINE_ALIASES],
+        help="sampling engine (see suggest_layouts; xla and xla_specialized are "
+             "mh_tpu's names for torch and torch_graph)",
     )
     p.add_argument(
         "--serve", action="store_true",
-        help="scene will be sampled repeatedly (no effect on the fused kernel)",
+        help="accepted for mh_tpu's flags; changes nothing here (auto takes the fused "
+             "kernel wherever it runs the config, else the CUDA-graph engine)",
     )
     p.add_argument(
         "--objs-devices", type=int, default=None,
@@ -211,14 +282,30 @@ def main(argv=None) -> int:
     p = sub.add_parser("devices", help="device report")
     p.set_defaults(fn=cmd_devices)
 
-    # their flags come with the port of tempering and SMC; until then each
-    # takes mh_tpu's flags unread and raises
-    for name, what in (("temper", "parallel tempering"), ("smc", "annealed SMC")):
-        sub.add_parser(name, help=f"{what} (not ported yet)").set_defaults(fn=cmd_not_ported)
+    p = sub.add_parser("temper", help="parallel tempering on one device")
+    p.add_argument("--scene", help="scene JSON (default: built-in demo scene)")
+    p.add_argument("--objects", type=int, default=32)
+    p.add_argument("--replicas", type=int, default=16)
+    p.add_argument("--exchange-every", type=int, default=5)
+    p.add_argument("--rounds", type=int, default=20)
+    p.add_argument("--adapt-ladder", action="store_true",
+                   help="swap-rate-targeted ladder adaptation")
+    _add_sampler_flags(p)
+    p.set_defaults(fn=cmd_temper)
 
-    args, unread = ap.parse_known_args(argv)
-    if unread and args.fn is not cmd_not_ported:
-        ap.error(f"unrecognized arguments: {' '.join(unread)}")
+    p = sub.add_parser("smc", help="annealed SMC on one device")
+    p.add_argument("--scene", help="scene JSON (default: built-in demo scene)")
+    p.add_argument("--objects", type=int, default=32)
+    p.add_argument("--particles", type=int, default=64)
+    p.add_argument("--stages", type=int, default=10)
+    p.add_argument("--mutate-steps", type=int, default=5)
+    p.add_argument("--adaptive", action="store_true",
+                   help="ESS-targeted adaptive tempering")
+    p.add_argument("--init", choices=["pose0", "prior"], default="pose0")
+    _add_sampler_flags(p)
+    p.set_defaults(fn=cmd_smc)
+
+    args = ap.parse_args(argv)
     return args.fn(args)
 
 

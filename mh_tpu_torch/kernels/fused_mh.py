@@ -568,6 +568,24 @@ fused_chains_reference.calls = 0
 # ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
+def smem_bytes(n: int, n_clr: int, moves: int) -> int:
+    """Dynamic shared memory of one block, as csrc/fused_mh.cu lays it out:
+    10 planes of N floats (13 for a compound step, whose star pose holds
+    all six planes), (6 + clearances) reduction rows of THREADS floats, and
+    a compound step's move table."""
+    compound = moves > 1
+    return 4 * ((13 if compound else 10) * n + (6 + n_clr) * THREADS
+                + (N_MOVE_ROWS * THREADS if compound else 0))
+
+
+def kernel_takes(cfg: SamplerConfig, n: int, n_clr: int) -> bool:
+    """Whether :func:`fused_mh_cuda` takes this config and scene size (``n``
+    object lanes, ``n_clr`` real clearances): the checks it makes before
+    launching, decided without building anything."""
+    return (1 <= cfg.accept_draws <= MAX_ACCEPT_DRAWS
+            and smem_bytes(n, n_clr, cfg.n_moves_per_step) <= MAX_SMEM)
+
+
 def fused_mh_cuda(pk: PackedScene, pose0: Tensor, seed: int, iterations: int,
                   first_chain: int = 0):
     """Launch ``csrc/fused_mh.cu`` on ``pose0`` f32[C, N, 6] (a CUDA tensor).
@@ -582,13 +600,7 @@ def fused_mh_cuda(pk: PackedScene, pose0: Tensor, seed: int, iterations: int,
         raise ValueError(f"pose0 shape {tuple(pose0.shape)} != ({n_chains}, {pk.n}, 6)")
     if pk.planes.device != pose0.device:
         raise ValueError("packed scene and pose0 are on different devices")
-    # dynamic shared memory of one block, as csrc/fused_mh.cu lays it out:
-    # 10 planes of N floats (13 for a compound step, whose star pose holds
-    # all six planes), (6 + clearances) reduction rows of THREADS floats, and
-    # a compound step's move table
-    compound = pk.moves > 1
-    smem = 4 * ((13 if compound else 10) * n + (6 + pk.n_clr) * THREADS
-                + (N_MOVE_ROWS * THREADS if compound else 0))
+    smem = smem_bytes(n, pk.n_clr, pk.moves)
     if smem > MAX_SMEM:
         raise ValueError(f"{n} objects x {pk.n_clr} clearances need {smem} B of shared "
                          f"memory per block; the limit is {MAX_SMEM}")

@@ -138,6 +138,11 @@ class Scene:
         return self.obj_mask.shape[0]
 
     @property
+    def n_objs(self) -> Tensor:
+        """i32[] — real objects, a device scalar (gates swaps, ``Kernel.cu:657``)."""
+        return torch.sum(self.obj_mask).to(torch.int32)
+
+    @property
     def device(self) -> torch.device:
         return self.obj_mask.device
 

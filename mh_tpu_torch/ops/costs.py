@@ -221,6 +221,22 @@ def cost_terms(
     cannot change the total — always in PARITY, and in FIXED when the
     weight is exactly 0. The breakdown then reports 0 for it.
     """
+    with_off = not (skip_unused_offlimits and offlimits_unused(scene, mode))
+    return weighted_terms(pose, scene, mode, with_off)
+
+
+def offlimits_unused(scene: Scene, mode: CostMode) -> bool:
+    """True where the off-limits term cannot change the total: PARITY (its
+    total excludes the term, ``Kernel.cu:547``) or FIXED at a zero weight.
+    Reads the weight to the host in FIXED, so a chain decides it once per
+    scene, outside its steps."""
+    return mode is CostMode.PARITY or float(scene.w_offlimits) == 0.0
+
+
+def weighted_terms(pose: Tensor, scene: Scene, mode: CostMode, with_off: bool) -> CostBreakdown:
+    """:func:`cost_terms` with the off-limits decision already made:
+    ``with_off=False`` reports 0 for the term and leaves it out of the
+    total. Reads nothing back to the host."""
     pw = pair_wise_costs(pose, scene)
     pwa = pair_wise_angle_costs(pose, scene, mode)
     if mode is CostMode.PARITY:
@@ -230,12 +246,10 @@ def cost_terms(
     vb = scene.w_visual_balance * visual_balance_costs(pose, scene)
     fp = scene.w_focal * focal_point_costs(pose, scene, mode)
     sym = scene.w_symmetry * symmetry_costs(pose, scene, mode)
-    if skip_unused_offlimits and (
-        mode is CostMode.PARITY or float(scene.w_offlimits) == 0.0
-    ):
-        off = torch.zeros_like(pair)
-    else:
+    if with_off:
         off = scene.w_offlimits * off_limits_costs(pose, scene, mode)
+    else:
+        off = torch.zeros_like(pair)
     clr = scene.w_clearance * clearance_costs(pose, scene, mode)
     sa = scene.w_surface_area * surface_area_costs(pose, scene, mode)
     total = pair + vb + fp + sym + clr + sa

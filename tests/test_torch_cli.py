@@ -127,12 +127,93 @@ def test_cli_suggest_defaults_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["temper", "--objects", "6", "--iters", "0"],
-    ["smc", "--objects", "6", "--iters", "0"],
-    ["suggest", "--objects", "4", "--iters", "1", "--device", "cpu", "--engine", "xla"],
+    ["suggest", "--objects", "4", "--iters", "1", "--device", "cpu", "--engine", "torch",
+     "--objs-devices", "2"],
+    ["suggest", "--objects", "4", "--iters", "1", "--device", "cpu", "--engine",
+     "torch_graph", "--objs-devices", "2"],
+    ["suggest", "--objects", "4", "--iters", "1", "--device", "cpu", "--engine", "xla",
+     "--objs-devices", "2"],
     ["suggest", "--objects", "4", "--iters", "1", "--device", "cpu", "--objs-devices", "2"],
-    ["suggest", "--objects", "4", "--iters", "1", "--device", "cpu", "--log", "run.jsonl"],
+    ["suggest", "--objects", "4", "--iters", "1", "--device", "cpu", "--log", "run.jsonl",
+     "--objs-devices", "2"],
 ])
 def test_cli_unported_paths_raise(argv):
+    """Multi-GPU sampling is the one path of the CLI not ported yet."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("engine", ["xla", "torch"])
+def test_cli_suggest_torch_engine_matches_mh_tpu(engine, capsys):
+    args = ["suggest", "--objects", "16", "--chains", "8", "--iters", "30", "--seed", "5",
+            "--mode", "fixed"]
+    assert jax_cli.main([*args, "--engine", "xla"]) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert cli.main([*args, "--engine", engine, "--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert got.keys() == want.keys()
+    gp, wp = np.asarray(got["points"]), np.asarray(want["points"])
+    ga, wa = np.asarray(got["accept_rate"]), np.asarray(want["accept_rate"])
+    same = (ga == wa) & (np.abs(gp - wp).max(axis=(1, 2)) <= POSE_ATOL)
+    assert (~same).sum() <= MAX_DIVERGENT
+    for name in want["costs"]:
+        np.testing.assert_allclose(np.asarray(got["costs"][name])[same],
+                                   np.asarray(want["costs"][name])[same], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("extra", [[], ["--adapt-ladder", "--mode", "fixed"]])
+def test_cli_temper_matches_mh_tpu(extra, capsys, tmp_path):
+    """mh_tpu's temper runs over its 8 test devices (device-count
+    invariant); the port's on one. The same keys and, to the tolerance of
+    tests/test_torch_tempering.py, the same values."""
+    args = ["temper", "--objects", "8", "--replicas", "8", "--rounds", "10",
+            "--exchange-every", "3", "--iters", "0", "--seed", "4", *extra]
+    assert jax_cli.main(args) == 0
+    want = json.loads(capsys.readouterr().out)
+    log = tmp_path / "t.jsonl"
+    assert cli.main([*args, "--device", "cpu", "--log", str(log)]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert got.keys() == want.keys()
+    assert (np.asarray(got["swap_rates"]) != np.asarray(want["swap_rates"])).sum() <= 2
+    assert got["target_total_cost"] == pytest.approx(want["target_total_cost"], rel=RTOL)
+    if "betas" in want:
+        np.testing.assert_allclose(got["betas"], want["betas"], rtol=1e-5)
+    events = [json.loads(line) for line in log.read_text().splitlines()]
+    assert [e["event"] for e in events] == ["run_config", "result"]
+    assert events[1]["swap_rates"] == got["swap_rates"]
+
+
+@pytest.mark.parametrize("extra", [[], ["--adaptive", "--init", "prior"]])
+def test_cli_smc_matches_mh_tpu(extra, capsys):
+    args = ["smc", "--objects", "8", "--particles", "16", "--stages", "5",
+            "--mutate-steps", "2", "--iters", "0", "--seed", "2", *extra]
+    assert jax_cli.main(args) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert cli.main([*args, "--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert got.keys() == want.keys()
+    assert got["resampled"] == want["resampled"]
+    np.testing.assert_allclose(got["ess"], want["ess"], rtol=1e-4)
+    np.testing.assert_allclose(got["betas"], want["betas"], rtol=1e-5)
+    assert got["log_evidence"] == pytest.approx(want["log_evidence"], rel=1e-5)
+    assert got["best_total_cost"] == pytest.approx(want["best_total_cost"], rel=RTOL)
+
+
+def test_cli_demo_log_rounds(tmp_path, capsys):
+    """--log with no --log-every: ~10 round events, as mh_tpu's CLI."""
+    log = tmp_path / "run.jsonl"
+    assert cli.main(["demo", "--objects", "8", "--chains", "4", "--iters", "20", "--log",
+                     str(log), "--device", "cpu"]) == 0
+    events = [json.loads(line) for line in log.read_text().splitlines()]
+    rounds = [e for e in events if e["event"] == "round"]
+    assert events[0]["event"] == "run_config" and events[-1]["event"] == "result"
+    assert [r["step"] for r in rounds] == [2 * (i + 1) for i in range(10)]
+    assert events[0]["n_objs"] == 8 and events[0]["config"]["iterations"] == 20
+
+
+def test_cli_temper_and_smc_need_cuda_by_default(monkeypatch):
+    monkeypatch.setattr(mh_tpu_torch.api.torch.cuda, "is_available", lambda: False)
+    for argv in (["temper", "--objects", "4", "--replicas", "2", "--rounds", "1"],
+                 ["smc", "--objects", "4", "--particles", "2", "--stages", "1"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)

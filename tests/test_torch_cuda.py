@@ -14,6 +14,7 @@ kernel counts exactly the plain version's hits.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 
 import pytest
@@ -117,3 +118,66 @@ def test_too_many_objects_for_shared_memory_raise(cuda):
     pk = TF.pack_scene(spec.build(device=cuda), mh_tpu_torch.SamplerConfig())
     with pytest.raises(ValueError, match="shared"):
         TF.fused_mh_cuda(pk, spec.initial_pose(device=cuda)[None].contiguous(), 0, 1)
+
+
+def test_threefry_bits_equal_on_card_and_cpu(cuda):
+    from mh_tpu_torch.sampler import prng
+
+    steps = torch.arange(256) * 7919 + 2**31  # data >= 2^31
+    for seed in (0, -1, 2**31 + 5):
+        got = prng.fold_in(prng.fold_in(prng.key(seed, cuda), torch.arange(256, device=cuda)),
+                           steps.to(cuda))
+        want = prng.fold_in(prng.fold_in(prng.key(seed), torch.arange(256)), steps)
+        assert torch.equal(got.cpu(), want)
+        for shape in ((64, 8), (64,)):
+            u, uc = prng.uniform(got, shape), prng.uniform(want, shape)
+            assert torch.equal(u.cpu().view(torch.int32), uc.view(torch.int32))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(n_moves_per_step=8, accept_draws=8, adapt=True,
+                                              beta=0.01)])
+def test_graph_engine_bitwise_equals_eager_and_logged(cuda, kw):
+    """torch_graph (one step captured as a CUDA graph) and a run logged in
+    rounds both give the one-shot torch engine's bits, and launch no
+    kernel of the port."""
+    import io
+
+    spec = mh_tpu_torch.demo_scene(24)
+    cfg = mh_tpu_torch.SamplerConfig(iterations=40, n_chains=64, **kw)
+    launches = TF.fused_mh_cuda.launches
+    eager = mh_tpu_torch.suggest_layouts(spec, cfg, key=3, engine="torch")
+    graph = mh_tpu_torch.suggest_layouts(spec, cfg, key=3, engine="torch_graph")
+    logs = {e: io.StringIO() for e in ("torch", "torch_graph")}
+    logged = [mh_tpu_torch.suggest_layouts(spec, cfg, key=3, engine=e, log=log, log_every=15)
+              for e, log in logs.items()]
+    assert TF.fused_mh_cuda.launches == launches
+    for other in (graph, *logged):
+        for field in ("points", "costs", "accept_rate", "step_scale"):
+            assert getattr(other, field).tobytes() == getattr(eager, field).tobytes(), field
+    for log in logs.values():
+        events = [json.loads(line)["event"] for line in log.getvalue().splitlines()]
+        assert events.count("round") == 3 and events[-1] == "result"
+    assert (eager.accept_rate > 0).sum() > 32
+
+
+def test_auto_on_card_launches_the_fused_kernel(cuda):
+    launches = TF.fused_mh_cuda.launches
+    res = mh_tpu_torch.suggest_layouts(
+        mh_tpu_torch.demo_scene(16), mh_tpu_torch.SamplerConfig(iterations=10, n_chains=8))
+    assert TF.fused_mh_cuda.launches == launches + 1
+    assert res.accept_rate.dtype.name == "float64"
+
+
+def test_tempering_and_smc_run_on_card(cuda):
+    from mh_tpu_torch.sampler import prng, run_smc, run_tempered
+
+    spec = mh_tpu_torch.demo_scene(16)
+    cfg = mh_tpu_torch.SamplerConfig()
+    states, rates, betas = run_tempered(prng.key(0, cuda), spec.initial_pose(device=cuda),
+                                        spec.build(device=cuda), cfg, None, 16, rounds=6,
+                                        adapt_ladder=True)
+    assert states.pose.device.type == "cuda" and rates.shape == (6,) and betas.shape == (16,)
+    states, diag = run_smc(prng.key(0, cuda), spec.initial_pose(device=cuda),
+                           spec.build(device=cuda), cfg, None, 16, n_stages=4, mutate_steps=2,
+                           adaptive=True, init="prior")
+    assert states.pose.device.type == "cuda" and torch.isfinite(diag["log_evidence"])

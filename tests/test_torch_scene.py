@@ -135,3 +135,15 @@ def test_config_mirrors_reference():
                 dict(accept_draws=0)):
         with pytest.raises(ValueError):
             mh_tpu_torch.SamplerConfig(**bad)
+
+
+@pytest.mark.parametrize("n,pad", [(1, 1), (1, 8), (9, 32), (32, 32), (100, 128)])
+def test_n_objs_equals_mh_tpu_for_padded_scenes(n, pad):
+    """Scene.n_objs: an int32 device scalar counting the real objects, as
+    mh_tpu's (it gates swaps, Kernel.cu:657)."""
+    spec = mh_tpu.demo_scene(n)
+    want = spec.build(pad_objs=pad).n_objs
+    got = torch_spec(spec).build(pad_objs=pad).n_objs
+    assert got.dtype == torch.int32 and got.shape == ()
+    assert int(got) == int(want) == n
+    assert np.asarray(want).dtype == got.numpy().dtype
