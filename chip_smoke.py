@@ -1,8 +1,12 @@
 """Run the mh_tpu_torch paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernel_vs_plain,time,...]
 
-Phases (each prints one JSON line; any failure raises and exits non-zero):
+With no argument every phase runs and the last two lines are the kernels
+line and the device line. ``--phases`` runs device, build and the named
+phases only (for short calls), and prints the device line but not the
+kernels line. Phases (each prints JSON lines; any failure raises and exits
+non-zero):
 
 1. device: the card's name and ``nvidia-smi`` power limit;
 2. build: one ``nvcc`` call compiles ``mh_tpu_torch/kernels/csrc/*.cu``
@@ -18,9 +22,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    steps), the latter once at the reference's beta=2 and once at
    beta=1e-3 with step-size adaptation, where most chains accept (the
    reference's acceptance at this shape is ~1e-5, so few chains ever
-   move). Both versions sum in one order and round every operation
-   alike: the pose, breakdown, accept count and step scale must be
-   bitwise equal in every chain;
+   move), and the single move at beta=1e-3 with adaptation (100 x 1024 x
+   1000); then the symmetry state's edge cases at 64 chains x 50 steps: 37
+   objects (PARITY, weighted FIXED, (4, 4)), frozen objects, -0.0 in the
+   start pose, 256 and 512 objects. Both versions sum in one order and
+   round every operation alike: the pose, breakdown, accept count and step
+   scale must be bitwise equal in every chain;
 5. main_path: ``suggest_layouts(demo_scene(100), SamplerConfig(
    iterations=1000, n_chains=1024), key=0, device="cuda")``, and
    main_path_block: the same scene with ``n_moves_per_step=64,
@@ -67,7 +74,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    for the torch engine eager and as a CUDA graph beside the fused kernel
    (100 objects x 1024 chains, one move and M = 64, with the graph's
    capture cost on the host clock; and the serve comparison at smaller
-   sizes), tempering sweeps/s and SMC wall time;
+   sizes), the kernel's objects sweep (32, 100, 256, 512 objects x 1024
+   chains, one move, with shared memory and blocks per SM) and weighted
+   FIXED at 100 objects, tempering sweeps/s and SMC wall time; and each
+   kernel's bound: the fused call's operations over the f32 peak beside its
+   bytes over the memory rate, and pi's SASS instructions per sample
+   (``cuobjdump -sass``) over the SMs' issue rate at their top clock;
 13. profile: ``torch.profiler`` over 10 steps of the torch engine at 100
    objects x 1024 chains, one move and M = K = 64, eager and as a CUDA
    graph: kernels per step, device-busy share of the wall time, top
@@ -99,6 +111,20 @@ RTOL, ATOL = 2e-4, 2e-3
 POSE_ATOL, MAX_DIVERGENT_CHAINS, MAX_ROUNDS_DIFFERING = 1e-4, 2, 1
 COMPOUND_CASES = ((4, 1), (4, 4), (1, 16), (1, 30))  # (moves per step, accept draws)
 BLOCK = dict(n_moves_per_step=64, accept_draws=64)  # BASELINE config 3, layout_block
+SWEEP_OBJECTS = (32, 100, 256, 512)
+PHASES = ("rng", "kernel_vs_plain", "main_path", "pi", "cli", "prng", "torch_engine_vs_cpu",
+          "main_path_torch", "tempering_smc", "time", "profile")
+# bounds (NVIDIA's H100 SXM data sheet, at 700 W): float32 outside the tensor
+# cores, device memory, and the issue rate of four warp-instructions a clock
+# on each SM
+F32_PEAK_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+ISSUE_THREAD_INSTR_PER_SM_CLOCK = 4 * 32
+# operations the fused kernel's function needs, a square root counted as one:
+# one sym_val (2 sub, 2 mul, add, 2 sqrt, sub, compare, select, sub, mul, abs,
+# the mask test), one object's per-object terms (focal, balance, outside area,
+# clearances), and one object's share of each reduced row (an add)
+SYM_VAL_OPS, OBJECT_OPS = 14, 60
 
 
 def say(phase: str, **fields) -> None:
@@ -250,6 +276,109 @@ def profile_steps(scene, pose0, cfg, graph: bool, steps: int) -> dict:
                 top=[(k, n / steps, t / steps) for k, (n, t) in top])
 
 
+def ptxas_registers(log: str, kernel: str):
+    """Registers of ``kernel`` from nvcc's ``-Xptxas -v`` output (None if the
+    library was not built in this process)."""
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and kernel in ln:
+            for nxt in lines[i + 1:i + 4]:
+                if "registers" in nxt:
+                    return int(nxt.split("Used ")[1].split(" registers")[0])
+    return None
+
+
+def blocks_per_sm(registers, smem: int, threads: int = 128) -> int:
+    """Resident blocks of the fused kernel on one H100 SM: the least of the
+    register file (65,536), shared memory (228 KB, 1 KB of it reserved per
+    block), 2,048 threads and 32 blocks."""
+    by_regs = 65536 // (threads * registers) if registers else 32
+    return min(by_regs, 233472 // (smem + 1024), 2048 // threads, 32)
+
+
+def fused_bound(F, pk, seed: int, steps: int, n_chains: int, dev) -> dict:
+    """The least time of one single-move fused call: the larger of its
+    operations over the float32 peak and its bytes over the memory rate.
+
+    Operations: each step's moved lanes, counted from this run's own draws
+    (a translate or rotate moves one object, a swap of two objects two),
+    each matched against every reflection and its own reflection against
+    every candidate (2 N sym_val) and its per-object terms rescored; every
+    object's share of the reduced rows; and the full match and terms of the
+    first and the final evaluation. Bytes: the poses in and out, the
+    stats and the packed scene, each once."""
+    import torch
+
+    lanes, unroll = F.step_layout(pk.accept_draws)
+    n, rows = pk.n, 6 + pk.n_clr
+    n_unf, n_objs = float(pk.scalars[F.S_NUNF]), float(pk.scalars[F.S_NOBJ])
+    moved = torch.zeros((), dtype=torch.int64, device=dev)
+    for t in range(steps):
+        if t % unroll == 0:
+            blk = F.uniform_block(seed, t // unroll, 0, n_chains, dev)
+        u = blk[:, lanes * (t % unroll):]
+        kind = torch.clamp_max((u[:, 0] * 3.0).to(torch.int32), 2)
+        k1 = torch.clamp_max(torch.floor(u[:, 6] * n_unf), max(n_unf - 1.0, 0.0))
+        k2 = torch.clamp_max(torch.floor(u[:, 7] * n_unf), max(n_unf - 1.0, 0.0))
+        if n_unf > 0:
+            moved += (kind < 2).sum() + 2 * ((kind == 2) & (k1 != k2) & (n_objs >= 2)).sum()
+    moved = int(moved)
+    ops = (moved * (2 * n * SYM_VAL_OPS + OBJECT_OPS) + steps * n_chains * n * rows
+           + 2 * n_chains * (n * n * SYM_VAL_OPS + n * (OBJECT_OPS + rows)))
+    scene_bytes = sum(4 * t.numel() for t in (pk.planes, pk.unf_idx, pk.scalars, pk.rel_idx,
+                                              pk.rel_p, pk.ang_idx, pk.ang_p, pk.clr_idx,
+                                              pk.clr_p))
+    nbytes = 2 * 4 * n_chains * n * 6 + 4 * n_chains * 10 + scene_bytes
+    t_ops, t_bytes = ops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                operations=ops, bytes=nbytes, moved_lanes_per_step=moved / (steps * n_chains))
+
+
+def sass_per_sample(lib: Path, kernel: str) -> dict:
+    """SASS instructions per sample of ``kernel``'s hot loop, read with
+    ``cuobjdump -sass`` from the built library: the backward branch whose
+    body holds the most float compares (one per sample), its instruction
+    count over that number."""
+    import re
+
+    from mh_tpu_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    section = next(s for s in sass.split("Function : ")[1:] if kernel in s.splitlines()[0])
+    addrs, ops, labels, pending = [], [], {}, []
+    for ln in section.splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", ln)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if ins:
+            addrs.append(int(ins.group(1), 16))
+            ops.append(ins.group(2))
+            for name in pending:
+                labels[name] = addrs[-1]
+            pending = []
+    best = None
+    for a, op in zip(addrs, ops):
+        br = re.search(r"BRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", op)
+        if not br:
+            continue
+        target = labels.get(br.group(1)) if br.group(1) else int(br.group(2), 16)
+        if target is None or target > a:
+            continue
+        body = [o for b, o in zip(addrs, ops) if target <= b <= a]
+        samples = sum(1 for o in body if re.search(r"\bFSETP", o))
+        if samples and (best is None or (samples, len(body)) > (best[0], best[1])):
+            best = (samples, len(body))
+    if best is None:
+        raise AssertionError(f"no sample loop found in the SASS of {kernel}")
+    return dict(loop_instructions=best[1], samples_per_iteration=best[0],
+                instructions_per_sample=best[1] / best[0])
+
+
 def run_main_path(name, spec, cfg, device, counters):
     """Drive ``suggest_layouts`` once with every launch count at 0, check
     the result, run it again for determinism; returns the launch count."""
@@ -286,22 +415,40 @@ def run_main_path(name, spec, cfg, device, counters):
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", help="comma-separated subset of: " + ", ".join(PHASES)
+                    + " (device and build always run; default: all, with the kernels line)")
+    args = ap.parse_args(argv)
+    phases = PHASES if args.phases is None else tuple(args.phases.split(","))
+    if set(phases) - set(PHASES):
+        ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
+    import numpy as np
+
     import mh_tpu_torch
-    from mh_tpu_torch import CostMode, SamplerConfig, cli, demo_scene
+    from mh_tpu_torch import CostMode, SamplerConfig, cli, demo_scene, suggest_layouts
+    from mh_tpu_torch.api import auto_engine
     from mh_tpu_torch.kernels import _build
     from mh_tpu_torch.kernels import fused_mh as F
     from mh_tpu_torch.kernels import pi_kernel as P
+    from mh_tpu_torch.sampler import mh as M
+    from mh_tpu_torch.sampler import prng
+    from mh_tpu_torch.sampler.smc import run_smc
+    from mh_tpu_torch.sampler.tempering import run_tempered
 
     if Path(mh_tpu_torch.__file__).resolve().parents[1] != HERE:
         raise SystemExit(f"mh_tpu_torch imported from {mh_tpu_torch.__file__}, not {HERE}")
     dev = torch.device("cuda")
+    cpu = torch.device("cpu")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -317,35 +464,12 @@ def main() -> int:
 
     # 2. build
     lib, seconds, log = _build.build()
-    say("build", library=lib.name, seconds=seconds,
-        ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln])
+    fused_regs = ptxas_registers(log, "fused_mh_kernel")
+    say("build", library=lib.name, seconds=seconds, fused_mh_registers=fused_regs,
+        ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln])
 
-    # 3. rng
-    for seed, counter, first in ((0, 0, 0), (7, 3, 40), (-5, 999, 1 << 20)):
-        got = F.uniform_block_cuda(seed, counter, first, 1024, dev)
-        want = F.uniform_block(seed, counter, first, 1024, dev)
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise AssertionError(f"uniform bits differ at seed={seed} counter={counter}")
-    say("rng", bits_equal=True)
-
-    # 4. kernel vs plain version
-    max_err = 0.0
-    spec = demo_scene(32)
-    for mode, w_off in ((CostMode.PARITY, 0.0), (CostMode.FIXED, 0.0), (CostMode.FIXED, -1.5)):
-        scene = spec.build(device=dev)
-        scene = dataclasses.replace(scene, w_offlimits=torch.tensor(w_off, device=dev))
-        pose0 = spec.initial_pose(device=dev).expand(64, 32, 6).contiguous()
-        for moves, draws in ((1, 1), *COMPOUND_CASES):
-            pk = F.pack_scene(scene, SamplerConfig(mode=mode, n_moves_per_step=moves,
-                                                   accept_draws=draws))
-            k = F.fused_mh_cuda(pk, pose0, 5, 50)
-            p = F.fused_chains_reference(pk, pose0, 5, 50)
-            got = compare(k, p)
-            check_self_consistent(k[0], k[1], scene, mode)
-            max_err = max(max_err, got["max_abs_err"])
-            say("kernel_vs_plain", objs=32, chains=64, steps=50, mode=mode.name,
-                w_offlimits=w_off, moves_per_step=moves, accept_draws=draws, **got)
-
+    # what the phases share
+    env = {**os.environ, "PYTHONPATH": str(HERE)}
     head = demo_scene(100)
     scene = head.build(device=dev)
     cfg = SamplerConfig(iterations=1000, n_chains=1024)
@@ -353,119 +477,11 @@ def main() -> int:
     pose0 = head.initial_pose(device=dev).expand(cfg.n_chains, 100, 6).contiguous()
     pk = F.pack_scene(scene, cfg)
     block_pk = F.pack_scene(scene, block_cfg)
-    # the block path where most chains accept, so the compound moves are tested
-    hot_cfg = dataclasses.replace(block_cfg, beta=1e-3, adapt=True)
-    plain_call_ms = {}
-    for name, kcfg, steps in (("single", cfg, cfg.iterations), ("block", block_cfg, 100),
-                              ("block_hot", hot_cfg, 100)):
-        kpk = F.pack_scene(scene, kcfg)
-        k = F.fused_mh_cuda(kpk, pose0, 0, steps)
-        p, plain_call_ms[name] = timed(lambda: F.fused_chains_reference(kpk, pose0, 0, steps))
-        got = compare(k, p)
-        max_err = max(max_err, got["max_abs_err"])
-        say("kernel_vs_plain", objs=100, chains=cfg.n_chains, steps=steps, mode="PARITY",
-            beta=kcfg.beta, adapt=kcfg.adapt, moves_per_step=kcfg.n_moves_per_step,
-            accept_draws=kcfg.accept_draws, plain_call_ms=plain_call_ms[name], **got)
-        if name == "block_hot" and got["chains_accepting"] < cfg.n_chains // 2:
-            raise AssertionError(f"block_hot: only {got['chains_accepting']} chains accepted")
-
-    # 5. main paths
-    fused_counters = ((F.fused_mh_cuda, "launches"), (F.fused_chains_reference, "calls"))
-    fused_launches = run_main_path("main_path", head, cfg, "cuda", fused_counters)
-    fused_launches += run_main_path("main_path_block", head, block_cfg, None, fused_counters)
-
-    # 6. pi
-    pi_err = 0
-    for seed, total in ((0, 1 << 28), (11, (1 << 28) - 12345)):
-        got = P.pi_hits_cuda(seed, total, dev)
-        want = P.pi_hits_reference(seed, total, dev)
-        pi_err = max(pi_err, abs(got - want))
-        if got != want:
-            raise AssertionError(f"pi hits {got} != plain {want} at seed={seed} total={total}")
-        say("pi_kernel_vs_plain", seed=seed, samples=total, hits=got, exact=True)
-    P.pi_hits_cuda.launches = 0
-    P.pi_hits_reference.calls = 0
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = cli.main(["pi", "--fused", "--samples", str(1 << 32)])
-    pi_launches, pi_plain = P.pi_hits_cuda.launches, P.pi_hits_reference.calls
-    if rc or pi_launches < 1 or pi_plain:
-        raise AssertionError(f"pi path: rc {rc}, {pi_launches} launches, {pi_plain} plain calls")
-    line = out.getvalue().strip()
-    est = float(line.split()[2])
-    if abs(est - math.pi) >= 6 * sigma_pi(1 << 32) or f"({1 << 32} samples" not in line:
-        raise AssertionError(f"pi path printed {line!r}")
-    say("main_path_pi", command="python -m mh_tpu_torch pi --fused --samples 4294967296",
-        printed=line, launches=pi_launches, plain_calls=pi_plain,
-        error_in_sigmas=abs(est - math.pi) / sigma_pi(1 << 32))
-
-    # 7. the command line in subprocesses
-    env = {**os.environ, "PYTHONPATH": str(HERE)}
-    for argv, check in (
-        (["pi", "--fused", "--samples", str(1 << 26)], lambda s: "fused kernel" in s),
-        (["suggest", "--objects", "32", "--chains", "64", "--iters", "50",
-          "--moves-per-step", "4"],
-         lambda s: len(json.loads(s)["accept_rate"]) == 64
-         and all(math.isfinite(v) for v in json.loads(s)["costs"]["total"])),
-    ):
-        proc = subprocess.run([sys.executable, "-m", "mh_tpu_torch", *argv], cwd=HERE, env=env,
-                              capture_output=True, text=True, timeout=300)
-        if proc.returncode or not check(proc.stdout):
-            raise AssertionError(f"{argv}: rc {proc.returncode}\n{proc.stdout[-2000:]}"
-                                 f"\n{proc.stderr[-4000:]}")
-        say("cli", argv=argv, rc=proc.returncode, stdout_bytes=len(proc.stdout))
-
-    # 8. prng: the torch engine's threefry stream on the card against the CPU
-    import numpy as np
-
-    from mh_tpu_torch.api import auto_engine
-    from mh_tpu_torch.sampler import mh as M
-    from mh_tpu_torch.sampler import prng
-    from mh_tpu_torch.sampler.smc import run_smc
-    from mh_tpu_torch.sampler.tempering import run_tempered
-
-    cpu = torch.device("cpu")
-
-    def prng_draws(d):
-        out = []
-        for seed in (0, 7, -1, 2**31 + 5):
-            k = prng.key(seed, d)
-            chains = prng.fold_in(k, torch.arange(1024, device=d))
-            steps = prng.fold_in(chains, torch.arange(1024, device=d) * 4099 + 2**31)
-            lo, hi = torch.tensor(-3.0, device=d), torch.tensor(7.5, device=d)
-            out += [prng.split(k, 5), chains, steps, prng.uniform(steps, (1, 8)),
-                    prng.uniform(steps, (64, 8)), prng.uniform(prng.fold_in(steps, 1), (64,)),
-                    prng.uniform(chains, (100,), lo, hi), prng.uniform(chains, (100,), 0.0, 6.2832)]
-        return out
-
-    n_draws = 0
-    for g, w in zip(prng_draws(dev), prng_draws(cpu)):
-        g = g.cpu()
-        if g.dtype == torch.float32:
-            g, w = g.view(torch.int32), w.view(torch.int32)
-        if not torch.equal(g, w):
-            raise AssertionError("threefry bits differ between CUDA and the CPU")
-        n_draws += g.numel()
-    say("prng", values_compared=n_draws, bits_equal=True)
-
-    # 9. the torch chain engine on CUDA against the same call on the CPU
     spec32 = demo_scene(32)
-    for case, mode, w_off, kw in (("parity", CostMode.PARITY, 0.0, {}),
-                                  ("fixed", CostMode.FIXED, 0.0, {}),
-                                  ("fixed_weighted", CostMode.FIXED, -1.5, {}),
-                                  ("block_4x4", CostMode.PARITY, 0.0,
-                                   dict(n_moves_per_step=4, accept_draws=4))):
-        ecfg = SamplerConfig(iterations=50, n_chains=64, mode=mode, **kw)
-        runs = {}
-        for d in (dev, cpu):
-            sc = dataclasses.replace(spec32.build(device=d), w_offlimits=torch.tensor(w_off, device=d))
-            runs[d.type], _ = M.run_chains(prng.key(5, d), spec32.initial_pose(device=d), sc, ecfg)
-        say("torch_engine_vs_cpu", case=case, objs=32, steps=50,
-            **states_agree(case, runs["cuda"], runs["cpu"]))
-
-    # 10. the torch engine's main path at full width, and auto on CUDA
-    from mh_tpu_torch import suggest_layouts
-
+    tcfg = SamplerConfig()
+    key0 = prng.key(0, dev)
+    pose100 = head.initial_pose(device=dev)
+    fused_counters = ((F.fused_mh_cuda, "launches"), (F.fused_chains_reference, "calls"))
     all_counters = (*fused_counters, (P.pi_hits_cuda, "launches"), (P.pi_hits_reference, "calls"))
 
     def zero_counts():
@@ -497,239 +513,463 @@ def main() -> int:
         return dict(mean_accept=acc, chains_accepting=accepting,
                     breakdown_vs_cost_terms_max_abs=err, mean_total=float(res.costs[:, 0].mean()))
 
-    block50 = SamplerConfig(iterations=50, n_chains=1024, **BLOCK)
-    torch_runs = {}
-    for name, rcfg in (("single", cfg), ("block", block50),
-                       ("block_hot", dataclasses.replace(block50, beta=1e-3, adapt=True))):
+    max_err, pi_err, plain_call_ms = 0.0, 0, {}
+    fused_launches, fused_calls, pi_launches = 0, 0, 0
+
+    if "rng" in phases:
+        # 3. rng
+        for seed, counter, first in ((0, 0, 0), (7, 3, 40), (-5, 999, 1 << 20)):
+            got = F.uniform_block_cuda(seed, counter, first, 1024, dev)
+            want = F.uniform_block(seed, counter, first, 1024, dev)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"uniform bits differ at seed={seed} counter={counter}")
+        say("rng", bits_equal=True)
+
+    if "kernel_vs_plain" in phases:
+        # 4. kernel vs plain version
+        for mode, w_off in ((CostMode.PARITY, 0.0), (CostMode.FIXED, 0.0), (CostMode.FIXED, -1.5)):
+            s32 = dataclasses.replace(spec32.build(device=dev),
+                                      w_offlimits=torch.tensor(w_off, device=dev))
+            p32 = spec32.initial_pose(device=dev).expand(64, 32, 6).contiguous()
+            for moves, draws in ((1, 1), *COMPOUND_CASES):
+                pk32 = F.pack_scene(s32, SamplerConfig(mode=mode, n_moves_per_step=moves,
+                                                       accept_draws=draws))
+                k = F.fused_mh_cuda(pk32, p32, 5, 50)
+                p = F.fused_chains_reference(pk32, p32, 5, 50)
+                got = compare(k, p)
+                check_self_consistent(k[0], k[1], s32, mode)
+                max_err = max(max_err, got["max_abs_err"])
+                say("kernel_vs_plain", objs=32, chains=64, steps=50, mode=mode.name,
+                    w_offlimits=w_off, moves_per_step=moves, accept_draws=draws, **got)
+
+        # the paths where most chains accept, so the moves and commits are tested
+        hot_cfg = dataclasses.replace(block_cfg, beta=1e-3, adapt=True)
+        single_hot_cfg = dataclasses.replace(cfg, beta=1e-3, adapt=True)
+        for name, kcfg, steps in (("single", cfg, cfg.iterations),
+                                  ("single_hot", single_hot_cfg, cfg.iterations),
+                                  ("block", block_cfg, 100), ("block_hot", hot_cfg, 100)):
+            kpk = F.pack_scene(scene, kcfg)
+            k = F.fused_mh_cuda(kpk, pose0, 0, steps)
+            p, plain_call_ms[name] = timed(lambda: F.fused_chains_reference(kpk, pose0, 0, steps))
+            got = compare(k, p)
+            max_err = max(max_err, got["max_abs_err"])
+            say("kernel_vs_plain", objs=100, chains=cfg.n_chains, steps=steps, mode="PARITY",
+                beta=kcfg.beta, adapt=kcfg.adapt, moves_per_step=kcfg.n_moves_per_step,
+                accept_draws=kcfg.accept_draws, plain_call_ms=plain_call_ms[name], **got)
+            if name.endswith("_hot") and got["chains_accepting"] < cfg.n_chains // 2:
+                raise AssertionError(f"block_hot: only {got['chains_accepting']} chains accepted")
+
+        # the symmetry state's edge cases: a ragged object count, frozen objects,
+        # -0.0 in the start pose (a single move commits it through every lane),
+        # and widths where the O(N) state pays most; the plain version's
+        # [C, N, N] match stays small at 64 chains
+        for case, n_objs, mode, w_off, moves, draws in (
+                ("ragged", 37, CostMode.PARITY, 0.0, 1, 1),
+                ("ragged", 37, CostMode.FIXED, -1.5, 1, 1),
+                ("ragged", 37, CostMode.PARITY, 0.0, 4, 4),
+                ("frozen", 32, CostMode.PARITY, 0.0, 1, 1),
+                ("frozen", 32, CostMode.FIXED, -1.5, 4, 1),
+                ("neg_zero", 32, CostMode.PARITY, 0.0, 1, 1),
+                ("wide", 256, CostMode.PARITY, 0.0, 1, 1),
+                ("wide", 512, CostMode.PARITY, 0.0, 1, 1)):
+            wspec = demo_scene(n_objs)
+            if case == "frozen":
+                wspec.frozen = np.arange(n_objs) % 3 == 0
+            wscene = dataclasses.replace(wspec.build(device=dev),
+                                         w_offlimits=torch.tensor(w_off, device=dev))
+            wpose = wspec.initial_pose(device=dev).expand(64, n_objs, 6).clone()
+            if case == "neg_zero":
+                wpose[:, ::2, 2:] = -0.0
+                wpose[:, 0, :2] = -0.0
+            wcfg = SamplerConfig(mode=mode, n_moves_per_step=moves, accept_draws=draws,
+                                 beta=1e-3 if case == "neg_zero" else 2.0)
+            wpk = F.pack_scene(wscene, wcfg)
+            got = compare(F.fused_mh_cuda(wpk, wpose, 5, 50),
+                          F.fused_chains_reference(wpk, wpose, 5, 50))
+            if not got["chains_accepting"]:
+                raise AssertionError(f"{case}: no chain accepted")
+            max_err = max(max_err, got["max_abs_err"])
+            say("kernel_vs_plain", case=case, objs=n_objs, chains=64, steps=50, mode=mode.name,
+                w_offlimits=w_off, moves_per_step=moves, accept_draws=draws,
+                sym_incremental=F.sym_incremental(moves, n_objs), **got)
+
+    if "main_path" in phases:
+        # 5. main paths
+        fused_launches += run_main_path("main_path", head, cfg, "cuda", fused_counters)
+        fused_launches += run_main_path("main_path_block", head, block_cfg, None, fused_counters)
+        fused_calls += 2
+
+    if "pi" in phases:
+        # 6. pi
+        for seed, total in ((0, 1 << 28), (11, (1 << 28) - 12345)):
+            got = P.pi_hits_cuda(seed, total, dev)
+            want = P.pi_hits_reference(seed, total, dev)
+            pi_err = max(pi_err, abs(got - want))
+            if got != want:
+                raise AssertionError(f"pi hits {got} != plain {want} at seed={seed} total={total}")
+            say("pi_kernel_vs_plain", seed=seed, samples=total, hits=got, exact=True)
+        P.pi_hits_cuda.launches = 0
+        P.pi_hits_reference.calls = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["pi", "--fused", "--samples", str(1 << 32)])
+        pi_launches, pi_plain = P.pi_hits_cuda.launches, P.pi_hits_reference.calls
+        if rc or pi_launches < 1 or pi_plain:
+            raise AssertionError(f"pi path: rc {rc}, {pi_launches} launches, {pi_plain} plain calls")
+        line = out.getvalue().strip()
+        est = float(line.split()[2])
+        if abs(est - math.pi) >= 6 * sigma_pi(1 << 32) or f"({1 << 32} samples" not in line:
+            raise AssertionError(f"pi path printed {line!r}")
+        say("main_path_pi", command="python -m mh_tpu_torch pi --fused --samples 4294967296",
+            printed=line, launches=pi_launches, plain_calls=pi_plain,
+            error_in_sigmas=abs(est - math.pi) / sigma_pi(1 << 32))
+
+    if "cli" in phases:
+        # 7. the command line in subprocesses
+        for argv, check in (
+            (["pi", "--fused", "--samples", str(1 << 26)], lambda s: "fused kernel" in s),
+            (["suggest", "--objects", "32", "--chains", "64", "--iters", "50",
+              "--moves-per-step", "4"],
+             lambda s: len(json.loads(s)["accept_rate"]) == 64
+             and all(math.isfinite(v) for v in json.loads(s)["costs"]["total"])),
+        ):
+            proc = subprocess.run([sys.executable, "-m", "mh_tpu_torch", *argv], cwd=HERE, env=env,
+                                  capture_output=True, text=True, timeout=300)
+            if proc.returncode or not check(proc.stdout):
+                raise AssertionError(f"{argv}: rc {proc.returncode}\n{proc.stdout[-2000:]}"
+                                     f"\n{proc.stderr[-4000:]}")
+            say("cli", argv=argv, rc=proc.returncode, stdout_bytes=len(proc.stdout))
+
+    if "prng" in phases:
+        # 8. prng: the torch engine's threefry stream on the card against the CPU
+        def prng_draws(d):
+            out = []
+            for seed in (0, 7, -1, 2**31 + 5):
+                k = prng.key(seed, d)
+                chains = prng.fold_in(k, torch.arange(1024, device=d))
+                steps = prng.fold_in(chains, torch.arange(1024, device=d) * 4099 + 2**31)
+                lo, hi = torch.tensor(-3.0, device=d), torch.tensor(7.5, device=d)
+                out += [prng.split(k, 5), chains, steps, prng.uniform(steps, (1, 8)),
+                        prng.uniform(steps, (64, 8)), prng.uniform(prng.fold_in(steps, 1), (64,)),
+                        prng.uniform(chains, (100,), lo, hi), prng.uniform(chains, (100,), 0.0, 6.2832)]
+            return out
+
+        n_draws = 0
+        for g, w in zip(prng_draws(dev), prng_draws(cpu)):
+            g = g.cpu()
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            if not torch.equal(g, w):
+                raise AssertionError("threefry bits differ between CUDA and the CPU")
+            n_draws += g.numel()
+        say("prng", values_compared=n_draws, bits_equal=True)
+
+    if "torch_engine_vs_cpu" in phases:
+        # 9. the torch chain engine on CUDA against the same call on the CPU
+        for case, mode, w_off, kw in (("parity", CostMode.PARITY, 0.0, {}),
+                                      ("fixed", CostMode.FIXED, 0.0, {}),
+                                      ("fixed_weighted", CostMode.FIXED, -1.5, {}),
+                                      ("block_4x4", CostMode.PARITY, 0.0,
+                                       dict(n_moves_per_step=4, accept_draws=4))):
+            ecfg = SamplerConfig(iterations=50, n_chains=64, mode=mode, **kw)
+            runs = {}
+            for d in (dev, cpu):
+                sc = dataclasses.replace(spec32.build(device=d), w_offlimits=torch.tensor(w_off, device=d))
+                runs[d.type], _ = M.run_chains(prng.key(5, d), spec32.initial_pose(device=d), sc, ecfg)
+            say("torch_engine_vs_cpu", case=case, objs=32, steps=50,
+                **states_agree(case, runs["cuda"], runs["cpu"]))
+
+    if "main_path_torch" in phases:
+        # 10. the torch engine's main path at full width, and auto on CUDA
+        block50 = SamplerConfig(iterations=50, n_chains=1024, **BLOCK)
+        torch_runs = {}
+        for name, rcfg in (("single", cfg), ("block", block50),
+                           ("block_hot", dataclasses.replace(block50, beta=1e-3, adapt=True))):
+            for engine in ("torch", "torch_graph"):
+                zero_counts()
+                res, secs = wall(lambda: suggest_layouts(head, rcfg, key=0, engine=engine,
+                                                         device="cuda"))
+                counts = read_counts()
+                if any(counts.values()):
+                    raise AssertionError(f"the {engine} engine launched a kernel: {counts}")
+                torch_runs[name, engine] = res
+                say("main_path_torch", path=name, engine=engine, objs=100, chains=rcfg.n_chains,
+                    steps=rcfg.iterations, moves_per_step=rcfg.n_moves_per_step,
+                    accept_draws=rcfg.accept_draws, wall_s=secs, **counts,
+                    **check_result(f"{name}/{engine}", res, rcfg))
+            if not same_bits(torch_runs[name, "torch"], torch_runs[name, "torch_graph"]):
+                raise AssertionError(f"{name}: torch_graph differs from torch")
+        again = suggest_layouts(head, cfg, key=0, engine="torch", device="cuda")
+        if not same_bits(again, torch_runs["single", "torch"]):
+            raise AssertionError("a rerun differs from the one-shot torch run")
         for engine in ("torch", "torch_graph"):
-            zero_counts()
-            res, secs = wall(lambda: suggest_layouts(head, rcfg, key=0, engine=engine,
-                                                     device="cuda"))
-            counts = read_counts()
-            if any(counts.values()):
-                raise AssertionError(f"the {engine} engine launched a kernel: {counts}")
-            torch_runs[name, engine] = res
-            say("main_path_torch", path=name, engine=engine, objs=100, chains=rcfg.n_chains,
-                steps=rcfg.iterations, moves_per_step=rcfg.n_moves_per_step,
-                accept_draws=rcfg.accept_draws, wall_s=secs, **counts,
-                **check_result(f"{name}/{engine}", res, rcfg))
-        if not same_bits(torch_runs[name, "torch"], torch_runs[name, "torch_graph"]):
-            raise AssertionError(f"{name}: torch_graph differs from torch")
-    again = suggest_layouts(head, cfg, key=0, engine="torch", device="cuda")
-    if not same_bits(again, torch_runs["single", "torch"]):
-        raise AssertionError("a rerun differs from the one-shot torch run")
-    for engine in ("torch", "torch_graph"):
-        log = io.StringIO()
-        logged = suggest_layouts(head, cfg, key=0, engine=engine, device="cuda", log=log,
-                                 log_every=100)
-        events = [json.loads(line)["event"] for line in log.getvalue().splitlines()]
-        if not same_bits(logged, torch_runs["single", "torch"]):
-            raise AssertionError(f"a logged {engine} run differs from the one-shot torch run")
-        if events.count("round") != 10 or events[0] != "run_config" or events[-1] != "result":
-            raise AssertionError(f"logged {engine} run events {events}")
-    n_clr = int((scene.clr_mask > 0).sum())
-    chosen = auto_engine(dev, cfg, scene.n_pad_objs, n_clr)
-    zero_counts()
-    auto_res = suggest_layouts(head, cfg, key=0, device="cuda")
-    auto_counts = read_counts()
-    if chosen != "fused" or auto_counts["fused_mh_cuda.launches"] < 1 or \
-            auto_counts["fused_chains_reference.calls"]:
-        raise AssertionError(f"auto chose {chosen}: {auto_counts}")
-    fused_launches += auto_counts["fused_mh_cuda.launches"]
-    # past the kernel's limit of 120 accept draws auto takes the CUDA graph
-    wide = SamplerConfig(iterations=20, n_chains=1024, accept_draws=121)
-    wide_chosen = auto_engine(dev, wide, scene.n_pad_objs, n_clr)
-    zero_counts()
-    wide_res = suggest_layouts(head, wide, key=0, device="cuda")
-    wide_counts = read_counts()
-    if wide_chosen != "torch_graph" or any(wide_counts.values()) or not same_bits(
-            wide_res, suggest_layouts(head, wide, key=0, engine="torch", device="cuda")):
-        raise AssertionError(f"auto past the kernel's limit chose {wide_chosen}: {wide_counts}")
-    say("main_path_torch", graph_equals_eager_bitwise=True, rerun_bitwise=True,
-        logged_equals_one_shot_bitwise=True, round_events=events.count("round"),
-        auto_engine=chosen, auto_counts=auto_counts,
-        auto_mean_accept=float(auto_res.accept_rate.mean()),
-        auto_engine_121_draws=wide_chosen, auto_121_draws_equals_torch_bitwise=True,
-        auto_121_draws_mean_accept=float(wide_res.accept_rate.mean()))
+            log = io.StringIO()
+            logged = suggest_layouts(head, cfg, key=0, engine=engine, device="cuda", log=log,
+                                     log_every=100)
+            events = [json.loads(line)["event"] for line in log.getvalue().splitlines()]
+            if not same_bits(logged, torch_runs["single", "torch"]):
+                raise AssertionError(f"a logged {engine} run differs from the one-shot torch run")
+            if events.count("round") != 10 or events[0] != "run_config" or events[-1] != "result":
+                raise AssertionError(f"logged {engine} run events {events}")
+        n_clr = int((scene.clr_mask > 0).sum())
+        chosen = auto_engine(dev, cfg, scene.n_pad_objs, n_clr)
+        zero_counts()
+        auto_res = suggest_layouts(head, cfg, key=0, device="cuda")
+        auto_counts = read_counts()
+        if chosen != "fused" or auto_counts["fused_mh_cuda.launches"] < 1 or \
+                auto_counts["fused_chains_reference.calls"]:
+            raise AssertionError(f"auto chose {chosen}: {auto_counts}")
+        fused_launches += auto_counts["fused_mh_cuda.launches"]
+        fused_calls += 1
+        # past the kernel's limit of 120 accept draws auto takes the CUDA graph
+        wide = SamplerConfig(iterations=20, n_chains=1024, accept_draws=121)
+        wide_chosen = auto_engine(dev, wide, scene.n_pad_objs, n_clr)
+        zero_counts()
+        wide_res = suggest_layouts(head, wide, key=0, device="cuda")
+        wide_counts = read_counts()
+        if wide_chosen != "torch_graph" or any(wide_counts.values()) or not same_bits(
+                wide_res, suggest_layouts(head, wide, key=0, engine="torch", device="cuda")):
+            raise AssertionError(f"auto past the kernel's limit chose {wide_chosen}: {wide_counts}")
+        say("main_path_torch", graph_equals_eager_bitwise=True, rerun_bitwise=True,
+            logged_equals_one_shot_bitwise=True, round_events=events.count("round"),
+            auto_engine=chosen, auto_counts=auto_counts,
+            auto_mean_accept=float(auto_res.accept_rate.mean()),
+            auto_engine_121_draws=wide_chosen, auto_121_draws_equals_torch_bitwise=True,
+            auto_121_draws_mean_accept=float(wide_res.accept_rate.mean()))
 
-    # 11. tempering and SMC (BASELINE config 5, bench.py:330-378) on CUDA vs the CPU
-    tcfg = SamplerConfig()
-    for adapt in (False, True):
-        outs = {d.type: run_tempered(prng.key(0, d), spec32.initial_pose(device=d),
-                                     spec32.build(device=d), tcfg, None, 64, exchange_every=5,
-                                     rounds=24, adapt_ladder=adapt) for d in (dev, cpu)}
-        rates, rates_cpu = outs["cuda"][1].cpu().numpy(), outs["cpu"][1].numpy()
-        rounds_differing = int((rates != rates_cpu).sum())
-        if rounds_differing > MAX_ROUNDS_DIFFERING:
-            raise AssertionError(f"tempering: {rounds_differing} rounds differ from the CPU")
-        extra = {}
-        if adapt:
-            b, bc = outs["cuda"][2].cpu().numpy(), outs["cpu"][2].numpy()
-            extra = dict(betas=b.tolist(), betas_max_rel_gap=float(np.abs(b / bc - 1).max()))
-        say("tempering", replicas=64, objs=32, exchange_every=5, rounds=24, adapt_ladder=adapt,
-            swap_rates=rates.tolist(), rounds_differing=rounds_differing, **extra,
-            **states_agree("tempering", outs["cuda"][0], outs["cpu"][0]))
-    for adaptive in (False, True):
-        outs = {d.type: run_smc(prng.key(0, d), spec32.initial_pose(device=d),
-                                spec32.build(device=d), tcfg, None, 64, n_stages=8,
-                                mutate_steps=5, adaptive=adaptive) for d in (dev, cpu)}
-        gd, wd = ({k: v.cpu().numpy() for k, v in outs[t][1].items()} for t in ("cuda", "cpu"))
-        np.testing.assert_array_equal(gd["resampled"], wd["resampled"])
-        np.testing.assert_allclose(gd["ess"], wd["ess"], rtol=1e-4)
-        np.testing.assert_allclose(gd["betas"], wd["betas"], rtol=1e-5)
-        np.testing.assert_allclose(gd["log_evidence"], wd["log_evidence"], rtol=1e-5)
-        say("smc", particles=64, objs=32, stages=8, mutate_steps=5, adaptive=adaptive,
-            log_evidence=float(gd["log_evidence"]), ess=gd["ess"].tolist(),
-            resampled=gd["resampled"].astype(int).tolist(), betas=gd["betas"].tolist(),
-            **states_agree("smc", outs["cuda"][0], outs["cpu"][0]))
-    for argv, keys in ((["temper", "--objects", "32", "--replicas", "64", "--rounds", "24"],
-                        {"swap_rates", "target_total_cost"}),
-                       (["smc", "--objects", "32", "--particles", "64", "--stages", "8",
-                         "--adaptive"],
-                        {"log_evidence", "betas", "ess", "resampled", "best_total_cost"})):
-        proc = subprocess.run([sys.executable, "-m", "mh_tpu_torch", *argv], cwd=HERE, env=env,
-                              capture_output=True, text=True, timeout=300)
-        if proc.returncode or set(json.loads(proc.stdout)) != keys:
-            raise AssertionError(f"{argv}: rc {proc.returncode}\n{proc.stdout[-2000:]}"
-                                 f"\n{proc.stderr[-4000:]}")
-        say("cli", argv=argv, rc=proc.returncode, output=json.loads(proc.stdout))
+    if "tempering_smc" in phases:
+        # 11. tempering and SMC (BASELINE config 5, bench.py:330-378) on CUDA vs the CPU
+        for adapt in (False, True):
+            outs = {d.type: run_tempered(prng.key(0, d), spec32.initial_pose(device=d),
+                                         spec32.build(device=d), tcfg, None, 64, exchange_every=5,
+                                         rounds=24, adapt_ladder=adapt) for d in (dev, cpu)}
+            rates, rates_cpu = outs["cuda"][1].cpu().numpy(), outs["cpu"][1].numpy()
+            rounds_differing = int((rates != rates_cpu).sum())
+            if rounds_differing > MAX_ROUNDS_DIFFERING:
+                raise AssertionError(f"tempering: {rounds_differing} rounds differ from the CPU")
+            extra = {}
+            if adapt:
+                b, bc = outs["cuda"][2].cpu().numpy(), outs["cpu"][2].numpy()
+                extra = dict(betas=b.tolist(), betas_max_rel_gap=float(np.abs(b / bc - 1).max()))
+            say("tempering", replicas=64, objs=32, exchange_every=5, rounds=24, adapt_ladder=adapt,
+                swap_rates=rates.tolist(), rounds_differing=rounds_differing, **extra,
+                **states_agree("tempering", outs["cuda"][0], outs["cpu"][0]))
+        for adaptive in (False, True):
+            outs = {d.type: run_smc(prng.key(0, d), spec32.initial_pose(device=d),
+                                    spec32.build(device=d), tcfg, None, 64, n_stages=8,
+                                    mutate_steps=5, adaptive=adaptive) for d in (dev, cpu)}
+            gd, wd = ({k: v.cpu().numpy() for k, v in outs[t][1].items()} for t in ("cuda", "cpu"))
+            np.testing.assert_array_equal(gd["resampled"], wd["resampled"])
+            np.testing.assert_allclose(gd["ess"], wd["ess"], rtol=1e-4)
+            np.testing.assert_allclose(gd["betas"], wd["betas"], rtol=1e-5)
+            np.testing.assert_allclose(gd["log_evidence"], wd["log_evidence"], rtol=1e-5)
+            say("smc", particles=64, objs=32, stages=8, mutate_steps=5, adaptive=adaptive,
+                log_evidence=float(gd["log_evidence"]), ess=gd["ess"].tolist(),
+                resampled=gd["resampled"].astype(int).tolist(), betas=gd["betas"].tolist(),
+                **states_agree("smc", outs["cuda"][0], outs["cpu"][0]))
+        for argv, keys in ((["temper", "--objects", "32", "--replicas", "64", "--rounds", "24"],
+                            {"swap_rates", "target_total_cost"}),
+                           (["smc", "--objects", "32", "--particles", "64", "--stages", "8",
+                             "--adaptive"],
+                            {"log_evidence", "betas", "ess", "resampled", "best_total_cost"})):
+            proc = subprocess.run([sys.executable, "-m", "mh_tpu_torch", *argv], cwd=HERE, env=env,
+                                  capture_output=True, text=True, timeout=300)
+            if proc.returncode or set(json.loads(proc.stdout)) != keys:
+                raise AssertionError(f"{argv}: rc {proc.returncode}\n{proc.stdout[-2000:]}"
+                                     f"\n{proc.stderr[-4000:]}")
+            say("cli", argv=argv, rc=proc.returncode, output=json.loads(proc.stdout))
 
-    # 12. time (CUDA events; slope over step or sample counts, minimum of repeats)
-    def fused_time(kpk, ksteps, psteps, repeats):
-        kt = [events_ms(lambda s=s: F.fused_mh_cuda(kpk, pose0, 0, s), repeats) for s in ksteps]
-        pt = [events_ms(lambda s=s: F.fused_chains_reference(kpk, pose0, 0, s), 2)
-              for s in psteps]
-        return slope(ksteps, kt), slope(psteps, pt), kt, pt
+    if "time" in phases:
+        # 12. time (CUDA events; slope over step or sample counts, minimum of repeats)
+        def fused_time(kpk, ksteps, psteps, repeats):
+            kt = [events_ms(lambda s=s: F.fused_mh_cuda(kpk, pose0, 0, s), repeats) for s in ksteps]
+            pt = [events_ms(lambda s=s: F.fused_chains_reference(kpk, pose0, 0, s), 2)
+                  for s in psteps]
+            return slope(ksteps, kt), slope(psteps, pt), kt, pt
 
-    ks, ps_ = (10, 505, 1010), (5, 15, 25)
-    k_step, p_step, kt, pt = fused_time(pk, ks, ps_, 5)
-    call_ms = events_ms(lambda: F.fused_mh_cuda(pk, pose0, 0, cfg.iterations), 5)
-    say("time", card=smi, objs=100, chains=cfg.n_chains, moves_per_step=1, accept_draws=1,
-        kernel_ms_per_step=k_step, kernel_proposals_per_s=cfg.n_chains / (k_step * 1e-3),
-        plain_ms_per_step=p_step, plain_proposals_per_s=cfg.n_chains / (p_step * 1e-3),
-        kernel_ms=dict(zip(map(str, ks), kt)), plain_ms=dict(zip(map(str, ps_), pt)),
-        kernel_call_ms=call_ms, plain_call_ms=plain_call_ms["single"])
+        ks, ps_ = (10, 505, 1010), (5, 15, 25)
+        k_step, p_step, kt, pt = fused_time(pk, ks, ps_, 5)
+        call_ms = events_ms(lambda: F.fused_mh_cuda(pk, pose0, 0, cfg.iterations), 5)
+        say("time", card=smi, objs=100, chains=cfg.n_chains, moves_per_step=1, accept_draws=1,
+            kernel_ms_per_step=k_step, kernel_proposals_per_s=cfg.n_chains / (k_step * 1e-3),
+            plain_ms_per_step=p_step, plain_proposals_per_s=cfg.n_chains / (p_step * 1e-3),
+            kernel_ms=dict(zip(map(str, ks), kt)), plain_ms=dict(zip(map(str, ps_), pt)),
+            kernel_call_ms=call_ms, plain_call_ms=plain_call_ms.get("single"))
+        fused_b = fused_bound(F, pk, 0, cfg.iterations, cfg.n_chains, dev)
+        say("bound", card=smi, kernel="fused_mh", objs=100, chains=cfg.n_chains,
+            steps=cfg.iterations, kernel_call_ms=call_ms, **fused_b,
+            share_of_bound=fused_b["bound_ms"] / call_ms)
 
-    bks, bps = (10, 255, 505), (2, 4, 6)
-    bk_step, bp_step, bkt, bpt = fused_time(block_pk, bks, bps, 3)
-    proposals = block_cfg.n_moves_per_step * block_cfg.n_chains  # bench.py:220
-    say("time", card=smi, objs=100, chains=block_cfg.n_chains, **BLOCK,
-        kernel_ms_per_step=bk_step, kernel_proposals_per_s=proposals / (bk_step * 1e-3),
-        plain_ms_per_step=bp_step, plain_proposals_per_s=proposals / (bp_step * 1e-3),
-        kernel_ms=dict(zip(map(str, bks), bkt)), plain_ms=dict(zip(map(str, bps), bpt)),
-        plain_call_ms_100_steps=plain_call_ms["block"])
+        bks, bps = (10, 255, 505), (2, 4, 6)
+        bk_step, bp_step, bkt, bpt = fused_time(block_pk, bks, bps, 3)
+        proposals = block_cfg.n_moves_per_step * block_cfg.n_chains  # bench.py:220
+        say("time", card=smi, objs=100, chains=block_cfg.n_chains, **BLOCK,
+            kernel_ms_per_step=bk_step, kernel_proposals_per_s=proposals / (bk_step * 1e-3),
+            plain_ms_per_step=bp_step, plain_proposals_per_s=proposals / (bp_step * 1e-3),
+            kernel_ms=dict(zip(map(str, bks), bkt)), plain_ms=dict(zip(map(str, bps), bpt)),
+            plain_call_ms_100_steps=plain_call_ms.get("block"))
 
-    pks, pps = (1 << 32, 1 << 33, 1 << 34), (1 << 26, 1 << 27, 1 << 28)
-    pkt = [events_ms(lambda n=n: P.pi_hits_cuda(0, n, dev), 3) for n in pks]
-    ppt = [events_ms(lambda n=n: P.pi_hits_reference(0, n, dev), 2) for n in pps]
-    pi_ms = events_ms(lambda: P.pi_hits_cuda(0, 1 << 32, dev), 3)
-    pi_plain_ms = events_ms(lambda: P.pi_hits_reference(0, 1 << 32, dev), 1)
-    say("time", card=smi, kernel="pi_kernel",
-        kernel_samples_per_s=1e3 / slope(pks, pkt), plain_samples_per_s=1e3 / slope(pps, ppt),
-        kernel_ms=dict(zip(map(str, pks), pkt)), plain_ms=dict(zip(map(str, pps), ppt)),
-        kernel_ms_2_32=pi_ms, plain_ms_2_32=pi_plain_ms)
+        # the kernel's objects sweep (one move), and weighted FIXED at 100 objects
+        sweep = {}
+        for n_objs in SWEEP_OBJECTS:
+            sspec = demo_scene(n_objs)
+            spk = F.pack_scene(sspec.build(device=dev), cfg)
+            spose = sspec.initial_pose(device=dev).expand(cfg.n_chains, n_objs, 6).contiguous()
+            st = [events_ms(lambda s=s: F.fused_mh_cuda(spk, spose, 0, s), 3) for s in ks]
+            sweep[n_objs] = dict(ms_per_step=slope(ks, st), ms=dict(zip(map(str, ks), st)),
+                                 smem_bytes=F.smem_bytes(n_objs, spk.n_clr, 1),
+                                 blocks_per_sm=blocks_per_sm(fused_regs,
+                                                             F.smem_bytes(n_objs, spk.n_clr, 1)))
+        say("time_objects_sweep", card=smi, chains=cfg.n_chains, moves_per_step=1, mode="PARITY",
+            registers=fused_regs, objects={str(k): v for k, v in sweep.items()},
+            ratio_512_to_100=sweep[512]["ms_per_step"] / sweep[100]["ms_per_step"])
+        # one chain to an SM: the step's latency, beside the 1024-chain step
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        lpose = head.initial_pose(device=dev).expand(n_sms, 100, 6).contiguous()
+        lt = [events_ms(lambda s=s: F.fused_mh_cuda(pk, lpose, 0, s), 3) for s in ks]
+        say("time", card=smi, objs=100, chains=n_sms, moves_per_step=1, one_chain_per_sm=True,
+            kernel_ms_per_step=slope(ks, lt), kernel_ms=dict(zip(map(str, ks), lt)),
+            ratio_to_1024_chains=slope(ks, lt) / sweep[100]["ms_per_step"])
+        wscene = dataclasses.replace(scene, w_offlimits=torch.tensor(-1.5, device=dev))
+        wpk = F.pack_scene(wscene, SamplerConfig(mode=CostMode.FIXED))
+        wt = [events_ms(lambda s=s: F.fused_mh_cuda(wpk, pose0, 0, s), 3) for s in ks]
+        say("time", card=smi, objs=100, chains=cfg.n_chains, mode="FIXED", w_offlimits=-1.5,
+            kernel_ms_per_step=slope(ks, wt), kernel_ms=dict(zip(map(str, ks), wt)))
 
-    # the torch engine, eager and as a CUDA graph, beside the fused kernel
-    key0 = prng.key(0, dev)
-    pose100 = head.initial_pose(device=dev)
+        pks, pps = (1 << 32, 1 << 33, 1 << 34), (1 << 26, 1 << 27, 1 << 28)
+        pkt = [events_ms(lambda n=n: P.pi_hits_cuda(0, n, dev), 3) for n in pks]
+        ppt = [events_ms(lambda n=n: P.pi_hits_reference(0, n, dev), 2) for n in pps]
+        pi_ms = events_ms(lambda: P.pi_hits_cuda(0, 1 << 32, dev), 3)
+        pi_plain_ms = events_ms(lambda: P.pi_hits_reference(0, 1 << 32, dev), 1)
+        say("time", card=smi, kernel="pi_kernel",
+            kernel_samples_per_s=1e3 / slope(pks, pkt), plain_samples_per_s=1e3 / slope(pps, ppt),
+            kernel_ms=dict(zip(map(str, pks), pkt)), plain_ms=dict(zip(map(str, pps), ppt)),
+            kernel_ms_2_32=pi_ms, plain_ms_2_32=pi_plain_ms)
+        # pi is bound by instruction issue: SASS instructions per sample over
+        # four warp-instructions a clock on every SM at the card's top SM clock
+        pi_sass = sass_per_sample(lib, "pi_hits_kernel")
+        clocks = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.split("\n")[0]
+        max_mhz, now_mhz = (float(v) for v in clocks.split(","))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        pi_b = dict(bound_ms=(1 << 32) * pi_sass["instructions_per_sample"]
+                    / (sms * ISSUE_THREAD_INSTR_PER_SM_CLOCK * max_mhz * 1e6) * 1e3,
+                    bound_by="operations")
+        say("bound", card=smi, kernel="pi_kernel", samples=1 << 32, kernel_ms=pi_ms, **pi_sass,
+            sms=sms, sm_clock_max_mhz=max_mhz, sm_clock_now_mhz=now_mhz, **pi_b,
+            share_of_bound=pi_b["bound_ms"] / pi_ms)
 
-    def wall_ms(fn, repeats):
-        """Minimum over ``repeats`` of ``fn()``'s host wall time, synchronized."""
-        return min(wall(fn)[1] for _ in range(repeats)) * 1e3
+        # the torch engine, eager and as a CUDA graph, beside the fused kernel
 
-    def engine_time(kcfg, eager_steps, graph_steps):
-        def eager(n):
-            return M.run_chains(key0, pose100, scene, dataclasses.replace(kcfg, iterations=n))
+        def wall_ms(fn, repeats):
+            """Minimum over ``repeats`` of ``fn()``'s host wall time, synchronized."""
+            return min(wall(fn)[1] for _ in range(repeats)) * 1e3
 
-        runner = M.compile_chains(scene, kcfg)
-        # the capture: the first call of a runner captures the step; the
-        # host clock, since capture is host work
-        first_ms = wall_ms(lambda: runner(key0, pose100, iterations=1), 1)
-        calls = dict(first_graph_call_1_step_ms=first_ms,
-                     graph_call_1_step_ms=wall_ms(lambda: runner(key0, pose100, iterations=1), 3),
-                     eager_call_1_step_ms=wall_ms(lambda: eager(1), 3))
-        et = [events_ms(lambda n=n: eager(n), 2) for n in eager_steps]
-        gt = [events_ms(lambda n=n: runner(key0, pose100, iterations=n), 3) for n in graph_steps]
-        return slope(eager_steps, et), slope(graph_steps, gt), et, gt, calls
+        def engine_time(kcfg, eager_steps, graph_steps):
+            def eager(n):
+                return M.run_chains(key0, pose100, scene, dataclasses.replace(kcfg, iterations=n))
 
-    torch_ms = {}
-    for name, kcfg, es, gs, fused_step in (
-            ("single", cfg, (5, 15, 25), (50, 150, 250), k_step),
-            ("block", block_cfg, (1, 2, 3), (5, 10, 20), bk_step)):
-        e_step, g_step, et, gt, calls = engine_time(kcfg, es, gs)
-        torch_ms[name] = (e_step, g_step)
-        proposals = kcfg.n_chains * kcfg.n_moves_per_step
-        capture_ms = calls["first_graph_call_1_step_ms"] - calls["graph_call_1_step_ms"]
-        # steps at which a capturing graph call costs what an eager call does
-        break_even = 1 + max(0.0, calls["first_graph_call_1_step_ms"]
-                             - calls["eager_call_1_step_ms"]) / (e_step - g_step)
-        say("time", card=smi, objs=100, chains=kcfg.n_chains,
-            moves_per_step=kcfg.n_moves_per_step, accept_draws=kcfg.accept_draws,
-            torch_ms_per_step=e_step, torch_proposals_per_s=proposals / (e_step * 1e-3),
-            torch_graph_ms_per_step=g_step,
-            torch_graph_proposals_per_s=proposals / (g_step * 1e-3),
-            fused_ms_per_step=fused_step, fused_proposals_per_s=proposals / (fused_step * 1e-3),
-            graph_capture_ms=capture_ms, graph_break_even_steps=break_even, **calls,
-            torch_ms=dict(zip(map(str, es), et)), torch_graph_ms=dict(zip(map(str, gs), gt)))
+            runner = M.compile_chains(scene, kcfg)
+            # the capture: the first call of a runner captures the step; the
+            # host clock, since capture is host work
+            first_ms = wall_ms(lambda: runner(key0, pose100, iterations=1), 1)
+            calls = dict(first_graph_call_1_step_ms=first_ms,
+                         graph_call_1_step_ms=wall_ms(lambda: runner(key0, pose100, iterations=1), 3),
+                         eager_call_1_step_ms=wall_ms(lambda: eager(1), 3))
+            et = [events_ms(lambda n=n: eager(n), 2) for n in eager_steps]
+            gt = [events_ms(lambda n=n: runner(key0, pose100, iterations=n), 3) for n in graph_steps]
+            return slope(eager_steps, et), slope(graph_steps, gt), et, gt, calls
 
-    # serve: is the CUDA graph faster than the fused kernel at any size?
-    for n_objs, n_chains in ((10, 1), (10, 64), (32, 64), (32, 1024)):
-        sspec = demo_scene(n_objs)
-        sscene = sspec.build(device=dev)
-        scfg = SamplerConfig(iterations=1, n_chains=n_chains)
-        spk = F.pack_scene(sscene, scfg)
-        spose = sspec.initial_pose(device=dev).expand(n_chains, n_objs, 6).contiguous()
-        fs = (100, 400, 700)
-        ft = [events_ms(lambda n=n: F.fused_mh_cuda(spk, spose, 0, n), 3) for n in fs]
-        runner = M.compile_chains(sscene, scfg)
-        runner(key0, spose, iterations=1)
-        gs = (50, 150, 250)
-        gt = [events_ms(lambda n=n: runner(key0, spose, iterations=n), 3) for n in gs]
-        f_step, g_step = slope(fs, ft), slope(gs, gt)
-        say("time_serve", card=smi, objs=n_objs, chains=n_chains, fused_ms_per_step=f_step,
-            torch_graph_ms_per_step=g_step, graph_faster=g_step < f_step,
-            fused_ms=dict(zip(map(str, fs), ft)), torch_graph_ms=dict(zip(map(str, gs), gt)))
+        torch_ms = {}
+        for name, kcfg, es, gs, fused_step in (
+                ("single", cfg, (5, 15, 25), (50, 150, 250), k_step),
+                ("block", block_cfg, (1, 2, 3), (5, 10, 20), bk_step)):
+            e_step, g_step, et, gt, calls = engine_time(kcfg, es, gs)
+            torch_ms[name] = (e_step, g_step)
+            proposals = kcfg.n_chains * kcfg.n_moves_per_step
+            capture_ms = calls["first_graph_call_1_step_ms"] - calls["graph_call_1_step_ms"]
+            # steps at which a capturing graph call costs what an eager call does
+            break_even = 1 + max(0.0, calls["first_graph_call_1_step_ms"]
+                                 - calls["eager_call_1_step_ms"]) / (e_step - g_step)
+            say("time", card=smi, objs=100, chains=kcfg.n_chains,
+                moves_per_step=kcfg.n_moves_per_step, accept_draws=kcfg.accept_draws,
+                torch_ms_per_step=e_step, torch_proposals_per_s=proposals / (e_step * 1e-3),
+                torch_graph_ms_per_step=g_step,
+                torch_graph_proposals_per_s=proposals / (g_step * 1e-3),
+                fused_ms_per_step=fused_step, fused_proposals_per_s=proposals / (fused_step * 1e-3),
+                graph_capture_ms=capture_ms, graph_break_even_steps=break_even, **calls,
+                torch_ms=dict(zip(map(str, es), et)), torch_graph_ms=dict(zip(map(str, gs), gt)))
 
-    # tempering sweeps/s as bench.py:374 counts them; SMC wall time
-    pose32, scene32 = spec32.initial_pose(device=dev), spec32.build(device=dev)
-    rounds = (4, 14, 24)
-    rt = [events_ms(lambda r=r: run_tempered(prng.key(0, dev), pose32, scene32, tcfg, None, 64,
-                                             exchange_every=5, rounds=r), 3) for r in rounds]
-    per_step = slope(rounds, rt) / 5.0
-    smc_ms = events_ms(lambda: run_smc(prng.key(0, dev), pose32, scene32, tcfg, None, 64,
-                                       n_stages=8, mutate_steps=5), 2)
-    say("time_tempering_smc", card=smi, objs=32, replicas=64,
-        tempering_sweeps_per_s=64 / (per_step * 1e-3), tempering_ms_per_step=per_step,
-        tempering_ms=dict(zip(map(str, rounds), rt)), smc_wall_ms=smc_ms)
+        # serve: is the CUDA graph faster than the fused kernel at any size?
+        for n_objs, n_chains in ((10, 1), (10, 64), (32, 64), (32, 1024)):
+            sspec = demo_scene(n_objs)
+            sscene = sspec.build(device=dev)
+            scfg = SamplerConfig(iterations=1, n_chains=n_chains)
+            spk = F.pack_scene(sscene, scfg)
+            spose = sspec.initial_pose(device=dev).expand(n_chains, n_objs, 6).contiguous()
+            fs = (100, 400, 700)
+            ft = [events_ms(lambda n=n: F.fused_mh_cuda(spk, spose, 0, n), 3) for n in fs]
+            runner = M.compile_chains(sscene, scfg)
+            runner(key0, spose, iterations=1)
+            gs = (50, 150, 250)
+            gt = [events_ms(lambda n=n: runner(key0, spose, iterations=n), 3) for n in gs]
+            f_step, g_step = slope(fs, ft), slope(gs, gt)
+            say("time_serve", card=smi, objs=n_objs, chains=n_chains, fused_ms_per_step=f_step,
+                torch_graph_ms_per_step=g_step, graph_faster=g_step < f_step,
+                fused_ms=dict(zip(map(str, fs), ft)), torch_graph_ms=dict(zip(map(str, gs), gt)))
 
-    # 13. profile: what the torch engine's step is made of on the card
-    for name, kcfg in (("single", cfg), ("block", block_cfg)):
-        for graph in (False, True):
-            say("profile", card=smi, objs=100, chains=kcfg.n_chains, path=name,
-                mode="graph" if graph else "eager",
-                **profile_steps(scene, pose100, kcfg, graph, steps=10))
+        # tempering sweeps/s as bench.py:374 counts them; SMC wall time
+        pose32, scene32 = spec32.initial_pose(device=dev), spec32.build(device=dev)
+        rounds = (4, 14, 24)
+        rt = [events_ms(lambda r=r: run_tempered(prng.key(0, dev), pose32, scene32, tcfg, None, 64,
+                                                 exchange_every=5, rounds=r), 3) for r in rounds]
+        per_step = slope(rounds, rt) / 5.0
+        smc_ms = events_ms(lambda: run_smc(prng.key(0, dev), pose32, scene32, tcfg, None, 64,
+                                           n_stages=8, mutate_steps=5), 2)
+        say("time_tempering_smc", card=smi, objs=32, replicas=64,
+            tempering_sweeps_per_s=64 / (per_step * 1e-3), tempering_ms_per_step=per_step,
+            tempering_ms=dict(zip(map(str, rounds), rt)), smc_wall_ms=smc_ms)
+
+    if "profile" in phases:
+        # 13. profile: what the torch engine's step is made of on the card
+        for name, kcfg in (("single", cfg), ("block", block_cfg)):
+            for graph in (False, True):
+                say("profile", card=smi, objs=100, chains=kcfg.n_chains, path=name,
+                    mode="graph" if graph else "eager",
+                    **profile_steps(scene, pose100, kcfg, graph, steps=10))
 
     if "jax" in sys.modules or "mh_tpu" in sys.modules:
         raise AssertionError("the port imported JAX or mh_tpu")
-    print(json.dumps({"kernels": [{
-        "name": "fused_mh",
-        "route": "cuda",
-        "source": "mh_tpu_torch/kernels/csrc/fused_mh.cu",
-        "replaces": "mh_tpu/kernels/fused_mh.py:405",
-        "launches": fused_launches,
-        "max_abs_err": max_err,
-        "ms": call_ms,
-        "plain_ms": plain_call_ms["single"],
-    }, {
-        "name": "pi_kernel",
-        "route": "cuda",
-        "source": "mh_tpu_torch/kernels/csrc/pi_kernel.cu",
-        "replaces": "mh_tpu/kernels/pi_kernel.py:28",
-        "launches": pi_launches,
-        "max_abs_err": pi_err,
-        "ms": pi_ms,
-        "plain_ms": pi_plain_ms,
-    }]}), flush=True)
+    if phases == PHASES:
+        # no PyTorch call computes either kernel's function: library_ms is null
+        print(json.dumps({"kernels": [{
+            "name": "fused_mh",
+            "route": "cuda",
+            "source": "mh_tpu_torch/kernels/csrc/fused_mh.cu",
+            "replaces": "mh_tpu/kernels/fused_mh.py:405",
+            "launches": fused_launches,
+            "launches_per_call": fused_launches / fused_calls,
+            "max_abs_err": max_err,
+            "ms": call_ms,
+            "plain_ms": plain_call_ms["single"],
+            "bound_ms": fused_b["bound_ms"],
+            "bound_by": fused_b["bound_by"],
+            "library_ms": None,
+        }, {
+            "name": "pi_kernel",
+            "route": "cuda",
+            "source": "mh_tpu_torch/kernels/csrc/pi_kernel.cu",
+            "replaces": "mh_tpu/kernels/pi_kernel.py:28",
+            "launches": pi_launches,
+            "launches_per_call": pi_launches,
+            "max_abs_err": pi_err,
+            "ms": pi_ms,
+            "plain_ms": pi_plain_ms,
+            "bound_ms": pi_b["bound_ms"],
+            "bound_by": pi_b["bound_by"],
+            "library_ms": None,
+        }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0

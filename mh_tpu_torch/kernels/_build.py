@@ -36,8 +36,8 @@ _SIGNATURES = {
     # csrc/fused_mh.cu: pose_in, pose_out, stats, planes, unf_idx, scalars,
     # rel_idx, rel_p, ang_idx, ang_p, clr_idx, clr_p, n_rel, n_ang, n_clr, n,
     # n_chains, seed, iterations, first_chain, parity, track_off, adapt, moves,
-    # accept_draws, stream
-    "mh_fused_run": [_c_void_p] * 12 + [_c_int] * 5 + [_c_uint32] + [_c_int] * 7 + [_c_void_p],
+    # accept_draws, incremental, stream
+    "mh_fused_run": [_c_void_p] * 12 + [_c_int] * 5 + [_c_uint32] + [_c_int] * 8 + [_c_void_p],
     # csrc/fused_mh.cu: out, seed, counter, first_chain, n_chains, stream
     "mh_uniform_block": [_c_void_p, _c_uint32, _c_uint32, _c_int, _c_int, _c_void_p],
     # csrc/pi_kernel.cu: partial, n_blocks, seed, total, stream

@@ -20,8 +20,14 @@ version also reproduces the CUDA kernel's summation order (a per-thread
 strided sum over ``THREADS`` lanes, then a halving tree), so on one card
 the two agree to the last bit unless the math library differs.
 
-Symmetry is recomputed in full each step (the JAX kernel's
-``incremental=False`` path); FIXED mode with a nonzero off-limits weight
+The kernel keeps O(N) symmetry state per chain (each reflection's best
+match and the lowest candidate reaching it) and rescans only the rows a
+move can change; where a compound step moves so many lanes that this costs
+more than the full match (:func:`sym_incremental`), it rescans every row.
+A max is exact in any order, so both give the bits of the full recompute,
+which the plain version does by default; ``incremental=True`` makes it
+keep the same state (the counterpart of the JAX kernel's
+``incremental=True``). FIXED mode with a nonzero off-limits weight
 recomputes the j > i overlap sum each step.
 """
 
@@ -50,6 +56,7 @@ PROPOSAL_LANES = 8  # uniforms one move consumes
 MAX_ACCEPT_DRAWS = DRAW_LANES - PROPOSAL_LANES  # 120 (mh_tpu/kernels/fused_mh.py:2356)
 N_MOVE_ROWS = 6  # compound step: dx, dy, drot, kind, i1, i2 per move, THREADS moves
 N_STATS = 10  # breakdown[8], n_accept, step_scale
+SMEM_WORDS_PER_OBJECT = 22  # csrc/fused_mh.cu: pose 6 + star 6 + 10 per-object arrays
 MAX_SMEM = 232448 - 1024  # sm_90 per-block shared memory, less the static part
 
 _NEG_HUGE = -1e30
@@ -330,9 +337,23 @@ class _Objective:
         dt = torch.where(dt > pi, dt - 2 * pi, dt)
         return 5.0 - torch.sqrt(dp) - 0.4 * torch.abs(dt)
 
-    def __call__(self, x, y, rot, with_off: bool):
+    def sym_rows(self, x, y, rot):
+        """``(best, arg)`` [C, N] of the symmetry match (Kernel.cu:283-318):
+        reflection i's best value over the unmasked candidates j and the
+        lowest j that reaches it (-1 and -1e30 where there is none)."""
+        rx, ry, rrot = self.reflections(x, y, rot)
+        val = self.sym_val(x[:, None, :], y[:, None, :], rot[:, None, :],
+                           rx[:, :, None], ry[:, :, None], rrot[:, :, None])
+        val = torch.where(self.mask > 0, val, _NEG_HUGE)
+        best = torch.amax(val, 2)
+        arg = torch.where((self.mask > 0).any(), torch.argmax(val, 2), -1)
+        return best, arg, val
+
+    def __call__(self, x, y, rot, with_off: bool, best=None):
         """(total[C], terms) with terms = (pair, vb, fp, sym, clr, off, sa),
-        each weighted, in the stats-lane order after ``total``."""
+        each weighted, in the stats-lane order after ``total``. ``best``
+        [C, N], where given, is each reflection's best symmetry match (the
+        incremental state); else the full match is computed."""
         sc, pk, pi, mask = self.sc, self.pk, self.pi, self.mask
         zero = torch.zeros_like(x[:, 0])
 
@@ -393,12 +414,9 @@ class _Objective:
         omxy = pl[P_OMAXY] + y
 
         # symmetry (Kernel.cu:283-318): [C, i, j] reflection i vs candidate j
-        rx, ry, rrot = self.reflections(x, y, rot)
-        val = self.sym_val(x[:, None, :], y[:, None, :], rot[:, None, :],
-                           rx[:, :, None], ry[:, :, None], rrot[:, :, None])
-        val = torch.where(mask > 0, val, _NEG_HUGE)
-        best = torch.clamp_min(torch.amax(val, 2), 0.0)
-        sym = -_block_sum(best * mask)
+        if best is None:
+            best = self.sym_rows(x, y, rot)[0]
+        sym = -_block_sum(torch.clamp_min(best, 0.0) * mask)
 
         # off-limits i < j overlap (Kernel.cu:485-514); row sums run j = 0..N-1
         off = zero
@@ -444,8 +462,34 @@ class _Objective:
         return total, (pair_w, vb_w, fp_w, sym_w, clr_w, off_w, sa_w)
 
 
+def _moved_lanes(is_t, is_r, is_s, sel1, sel2) -> Tensor:
+    """The lanes one move writes (``apply_move`` in csrc/fused_mh.cu): the
+    first pick of a translate or rotate, both picks of a swap of two."""
+    return (((is_t + is_r) > 0) & (sel1 > 0)) | ((is_s > 0) & (sel1 != sel2))
+
+
+def _sym_update(objective, star, moved, best_c, arg_c):
+    """The kernel's symmetry bookkeeping for one step, ``(best, arg)`` at
+    the star pose: rows of moved reflections, and rows whose argbest moved,
+    are rescanned; every other row keeps its best over the unmoved
+    candidates and meets the moved ones. Ties go to the lower index."""
+    best_f, arg_f, val = objective.sym_rows(star[0], star[1], star[4])
+    n = moved.shape[1]
+    rescan = moved | (torch.gather(moved, 1, arg_c.clamp_min(0)) & (arg_c >= 0))
+    cand = moved[:, None, :] & (objective.mask > 0)
+    vm = torch.where(cand, val, -math.inf)
+    bm = torch.amax(vm, 2)
+    am = torch.argmax(vm, 2)
+    key = torch.where(arg_c < 0, n, arg_c)
+    upd = (bm > best_c) | ((bm == best_c) & (am < key))
+    best = torch.where(rescan, best_f, torch.where(upd, bm, best_c))
+    arg = torch.where(rescan, arg_f, torch.where(upd, am, arg_c))
+    return best, arg
+
+
 def fused_chains_reference(
-    pk: PackedScene, pose0: Tensor, seed: int, iterations: int, first_chain: int = 0
+    pk: PackedScene, pose0: Tensor, seed: int, iterations: int, first_chain: int = 0,
+    incremental: bool = False,
 ):
     """The plain PyTorch version of the fused kernel, batched over chains.
 
@@ -461,6 +505,11 @@ def fused_chains_reference(
       of lanes 1 .. K), move m from lanes 0-7 of counter ``t (M+1) + 1 + m``.
       The step scale is taken once per step, the moves apply in order as
       plane expressions, and the result is scored and accepted once.
+
+    ``incremental=True`` carries the kernel's symmetry state (each
+    reflection's best match and argbest, :func:`_sym_update`) from step to
+    step instead of taking the full match; the bits are the same. The
+    default, as the main path calls it, takes the full match.
     """
     fused_chains_reference.calls += 1
     sc = [pk.scalars[i] for i in range(N_SCALARS)]
@@ -526,6 +575,8 @@ def fused_chains_reference(
         return st + (sw * (sel1 - sel2)) * (r2v - r1v)
 
     cur, _ = objective(ps[0], ps[1], ps[4], pk.track_off)
+    if incremental:
+        best_c, arg_c, _ = objective.sym_rows(ps[0], ps[1], ps[4])
     n_acc = torch.zeros_like(cur)
     log_scale = torch.zeros_like(cur)
     lanes, unroll = step_layout(n_draws)
@@ -537,22 +588,33 @@ def fused_chains_reference(
                 us_blk = uniforms(t // unroll)
             us = us_blk[:, lanes * (t % unroll):lanes * (t % unroll + 1)]
             u_acc = us[:, 1] if n_draws == 1 else torch.amin(us[:, PROPOSAL_LANES:], 1)
-            star = single_move(ps, *move_of(us, scale))
+            mv = move_of(us, scale)
+            star = single_move(ps, *mv)
+            moved = _moved_lanes(*mv[3:])
         else:
             c0 = t * (n_moves + 1)
             us0 = uniforms(c0)
             u_acc = us0[:, 1] if n_draws == 1 else torch.amin(us0[:, 1:1 + n_draws], 1)
             star = ps
+            moved = torch.zeros_like(ps[0], dtype=torch.bool)
             for m in range(n_moves):
-                star = compound_move(star, *move_of(uniforms(c0 + 1 + m), scale))
+                mv = move_of(uniforms(c0 + 1 + m), scale)
+                star = compound_move(star, *mv)
+                moved = moved | _moved_lanes(*mv[3:])
 
-        total_star, _ = objective(star[0], star[1], star[4], pk.track_off)
+        best_s = None
+        if incremental:
+            best_s, arg_s = _sym_update(objective, star, moved, best_c, arg_c)
+        total_star, _ = objective(star[0], star[1], star[4], pk.track_off, best_s)
         ratio = torch.exp(torch.clamp_max(sc[S_BETA] * (total_star - cur), 0.0))
         acc_b = (u_acc < ratio) & (gate > 0)
         acc = acc_b.float()
         ps = torch.where(acc_b[:, None], star, ps)
         cur = torch.where(acc_b, total_star, cur)
         n_acc = n_acc + acc
+        if incremental:
+            best_c = torch.where(acc_b[:, None], best_s, best_c)
+            arg_c = torch.where(acc_b[:, None], arg_s, arg_c)
         if pk.adapt:
             log_scale = log_scale + sc[S_ADAPTR] * (acc - sc[S_TARGET])
 
@@ -570,12 +632,21 @@ fused_chains_reference.calls = 0
 # ---------------------------------------------------------------------------
 def smem_bytes(n: int, n_clr: int, moves: int) -> int:
     """Dynamic shared memory of one block, as csrc/fused_mh.cu lays it out:
-    10 planes of N floats (13 for a compound step, whose star pose holds
-    all six planes), (6 + clearances) reduction rows of THREADS floats, and
-    a compound step's move table."""
-    compound = moves > 1
-    return 4 * ((13 if compound else 10) * n + (6 + n_clr) * THREADS
-                + (N_MOVE_ROWS * THREADS if compound else 0))
+    22 words per object (the current and star pose planes, the mask, the
+    cached focal term and the symmetry state, current and star, the
+    moved-lane and rescan lists), the 6 + clearances reduced rows' sums and
+    THREADS strided partials each, and a compound step's move table."""
+    return 4 * (SMEM_WORDS_PER_OBJECT * n + (6 + n_clr) * (1 + THREADS)
+                + (N_MOVE_ROWS * THREADS if moves > 1 else 0))
+
+
+def sym_incremental(moves: int, n: int) -> bool:
+    """Whether the kernel keeps its symmetry state for steps of ``moves``
+    moves at ``n`` objects. The state costs ~4 N sym_val evaluations per
+    moved lane pair (each moved candidate against every reflection, and
+    the rows it rescans), so past 4 M >= N a full N^2 rescan is cheaper;
+    both give the same bits."""
+    return 4 * moves < n
 
 
 def kernel_takes(cfg: SamplerConfig, n: int, n_clr: int) -> bool:
@@ -620,6 +691,7 @@ def fused_mh_cuda(pk: PackedScene, pose0: Tensor, seed: int, iterations: int,
         pk.rel_idx.shape[0], pk.ang_idx.shape[0], pk.n_clr, n, n_chains,
         ctypes.c_uint32(seed & M32), iterations, first_chain,
         int(pk.parity), int(pk.track_off), int(pk.adapt), pk.moves, pk.accept_draws,
+        int(sym_incremental(pk.moves, n)),
         ctypes.c_void_p(torch.cuda.current_stream(pose0.device).cuda_stream),
     )
     fused_mh_cuda.launches += 1

@@ -13,14 +13,20 @@ from __future__ import annotations
 import torch
 
 
-def estimate_pi(seed: int, n_samples: int = 1 << 20, batch: int = 1 << 16, device=None) -> float:
+def estimate_pi(seed: int, n_samples: int = 1 << 20, batch: int = 1 << 16,
+                device="cuda") -> float:
     """Estimate pi from ``n_samples`` points (rounded up to whole batches).
 
-    Batching keeps memory flat for large sample counts; hits are counted as
-    integers, so the count is exact at any size.
+    Runs on the card unless ``device`` names another; without a card the
+    default raises rather than falling back to the CPU. Batching keeps
+    memory flat for large sample counts; hits are counted as integers, so
+    the count is exact at any size.
     """
     if n_samples < 1 or batch < 1:
         raise ValueError(f"n_samples={n_samples} and batch={batch} must be positive")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
     n_batches = -(-n_samples // batch)
     gen = torch.Generator(device=device).manual_seed(seed)
     hits = torch.zeros((), dtype=torch.int64, device=device)

@@ -92,9 +92,9 @@ def test_auto_on_cuda_leaves_the_fused_kernel_where_it_cannot_run():
     choice is made from the config, before any launch."""
     many_draws = mh_tpu_torch.SamplerConfig(accept_draws=121)
     assert auto_engine("cuda", many_draws, 100, 2) == "torch_graph"
-    assert not TF.kernel_takes(mh_tpu_torch.SamplerConfig(), 6000, 2)
-    assert auto_engine("cuda", mh_tpu_torch.SamplerConfig(), 6000, 2) == "torch_graph"
-    assert TF.kernel_takes(mh_tpu_torch.SamplerConfig(), 5000, 2)
+    assert not TF.kernel_takes(mh_tpu_torch.SamplerConfig(), 2600, 2)
+    assert auto_engine("cuda", mh_tpu_torch.SamplerConfig(), 2600, 2) == "torch_graph"
+    assert TF.kernel_takes(mh_tpu_torch.SamplerConfig(), 2500, 2)
     assert "serve" not in inspect.signature(auto_engine).parameters
 
 

@@ -75,6 +75,31 @@ def test_compound_kernel_matches_reference(cuda, moves, draws, mode, w_off):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("case,n,moves,draws", [
+    ("ragged", 37, 1, 1), ("ragged", 37, 4, 4), ("frozen", 32, 1, 1), ("neg_zero", 32, 1, 1),
+    ("wide", 256, 1, 1), ("full_rescan", 3, 1, 1)])
+def test_symmetry_state_matches_reference(cuda, case, n, moves, draws):
+    """The kernel's O(N) symmetry state (rescanning every row where that is
+    cheaper: 3 objects) against the plain version's full match, in every
+    chain, at beta = 1e-3 where most steps commit."""
+    spec = mh_tpu_torch.demo_scene(n)
+    if case == "frozen":
+        spec.frozen = [i % 3 == 0 for i in range(n)]
+    cfg = mh_tpu_torch.SamplerConfig(beta=1e-3, adapt=True, n_moves_per_step=moves,
+                                     accept_draws=draws)
+    pk = TF.pack_scene(spec.build(device=cuda), cfg)
+    pose0 = spec.initial_pose(device=cuda).expand(64, n, 6).clone()
+    if case == "neg_zero":
+        pose0[:, ::2, 2:] = -0.0
+        pose0[:, 0, :2] = -0.0
+    got = TF.fused_mh_cuda(pk, pose0, 3, 60)
+    want = TF.fused_chains_reference(pk, pose0, 3, 60)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert (got[2] > 0).all()
+
+
 @pytest.mark.parametrize("seed,total", [(0, 1 << 24), (7, 12345), (-3, (1 << 22) + 1), (1, 0)])
 def test_pi_hits_equal_reference(cuda, seed, total):
     launches = TP.pi_hits_cuda.launches
@@ -90,6 +115,12 @@ def test_estimate_pi_fused_on_card(cuda):
     assert abs(est - math.pi) < 6 * sigma
     assert (est, total) == TP.estimate_pi_fused(0, 1 << 28, device=cuda)
     assert TP.pi_hits_reference.calls == calls
+
+
+def test_estimate_pi_defaults_to_cuda(cuda):
+    n = 1 << 20
+    sigma = 4 * math.sqrt((math.pi / 4) * (1 - math.pi / 4) / n)
+    assert abs(mh_tpu_torch.estimate_pi(0, n_samples=n) - math.pi) < 6 * sigma
 
 
 def test_spec_runs_on_cuda_by_default(cuda):

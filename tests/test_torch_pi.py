@@ -51,13 +51,21 @@ def np_counter_bits(seed: int, counter: np.ndarray, flat: np.ndarray) -> np.ndar
 @pytest.mark.parametrize("seed", [0, 1])
 def test_estimate_pi_within_mc_error(seed):
     n = 1 << 18
-    assert abs(mh_tpu_torch.estimate_pi(seed, n_samples=n) - math.pi) < 6 * sigma(n)
+    assert abs(mh_tpu_torch.estimate_pi(seed, n_samples=n, device="cpu") - math.pi) < 6 * sigma(n)
 
 
 def test_estimate_pi_deterministic_per_seed():
-    a = mh_tpu_torch.estimate_pi(3, n_samples=1 << 16)
-    assert a == mh_tpu_torch.estimate_pi(3, n_samples=1 << 16)
-    assert a != mh_tpu_torch.estimate_pi(4, n_samples=1 << 16)
+    a = mh_tpu_torch.estimate_pi(3, n_samples=1 << 16, device="cpu")
+    assert a == mh_tpu_torch.estimate_pi(3, n_samples=1 << 16, device="cpu")
+    assert a != mh_tpu_torch.estimate_pi(4, n_samples=1 << 16, device="cpu")
+
+
+def test_estimate_pi_without_device_needs_cuda(monkeypatch):
+    """The exported estimator runs on the card by default; without one it
+    raises and never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mh_tpu_torch.estimate_pi(0, n_samples=1 << 10)
 
 
 @pytest.mark.parametrize("seed", [0, 5])
@@ -72,7 +80,7 @@ def test_fused_plain_version_within_mc_error(seed):
 def test_agrees_with_mh_tpu_estimate_pi(seed):
     n = 1 << 18
     want = float(mh_tpu.estimate_pi(jax.random.key(seed), n_samples=n))
-    for got in (mh_tpu_torch.estimate_pi(seed, n_samples=n),
+    for got in (mh_tpu_torch.estimate_pi(seed, n_samples=n, device="cpu"),
                 TP.estimate_pi_fused(seed, n, device="cpu")[0]):
         assert abs(got - want) < 6 * math.sqrt(2) * sigma(n)
 
