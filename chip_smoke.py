@@ -23,16 +23,22 @@ non-zero):
    beta=1e-3 with step-size adaptation, where most chains accept (the
    reference's acceptance at this shape is ~1e-5, so few chains ever
    move), and the single move at beta=1e-3 with adaptation (100 x 1024 x
-   1000); then the symmetry state's edge cases at 64 chains x 50 steps: 37
-   objects (PARITY, weighted FIXED, (4, 4)), frozen objects, -0.0 in the
-   start pose, 256 and 512 objects. Both versions sum in one order and
-   round every operation alike: the pose, breakdown, accept count and step
-   scale must be bitwise equal in every chain;
+   1000), in PARITY and in weighted FIXED (``w_offlimits=-1.5``, the
+   off-limits slab state); then the symmetry and off-limits states' edge
+   cases at 64 chains x 50 steps: 37 objects (PARITY, weighted FIXED, (4,
+   4)), frozen objects, -0.0 in the start pose (one move; (4, 4) in PARITY
+   and weighted FIXED), 256 and 512 objects (PARITY and weighted FIXED),
+   and weighted FIXED at 100 objects with (4, 4) (the cells updated per
+   step of four moves). Both versions sum in one order and round every
+   operation alike: the pose, breakdown, accept count and step scale must
+   be bitwise equal in every chain;
 5. main_path: ``suggest_layouts(demo_scene(100), SamplerConfig(
-   iterations=1000, n_chains=1024), key=0, device="cuda")``, and
-   main_path_block: the same scene with ``n_moves_per_step=64,
-   accept_draws=64`` over 500 steps and no ``device`` (a SceneSpec runs on
-   CUDA by default). Each must go through the CUDA kernel (launch count
+   iterations=1000, n_chains=1024), key=0, device="cuda")``;
+   main_path_fixed: the same with ``w_offlimits=-1.5`` and
+   ``mode=FIXED`` (the off-limits slab state); and main_path_block: the
+   same scene with ``n_moves_per_step=64, accept_draws=64`` over 500 steps
+   and no ``device`` (a SceneSpec runs on CUDA by default). Each must go
+   through the CUDA kernel (launch count
    >= 1, plain version not called), give finite costs, a mean accept rate
    in (0, 1), breakdowns that match ``cost_terms`` on every final pose
    (rtol=2e-4, atol=2e-3), and the same bits when run again;
@@ -75,15 +81,23 @@ non-zero):
    (100 objects x 1024 chains, one move and M = 64, with the graph's
    capture cost on the host clock; and the serve comparison at smaller
    sizes), the kernel's objects sweep (32, 100, 256, 512 objects x 1024
-   chains, one move, with shared memory and blocks per SM) and weighted
-   FIXED at 100 objects, tempering sweeps/s and SMC wall time; and each
-   kernel's bound: the fused call's operations over the f32 peak beside its
-   bytes over the memory rate, and pi's SASS instructions per sample
-   (``cuobjdump -sass``) over the SMs' issue rate at their top clock;
+   chains, one move, with shared memory and blocks per SM) in PARITY and in
+   weighted FIXED, tempering sweeps/s and SMC wall time; and each kernel's
+   bound: the fused call's operations over the f32 peak beside its bytes
+   over the memory rate (PARITY, and weighted FIXED with the pairs each
+   step's moved boxes change, counted from the run's own draws; beside it
+   the slab state's own count), and pi's SASS instructions
+   per sample (``cuobjdump -sass``) over the SMs' issue rate at their top
+   clock;
 13. profile: ``torch.profiler`` over 10 steps of the torch engine at 100
    objects x 1024 chains, one move and M = K = 64, eager and as a CUDA
    graph: kernels per step, device-busy share of the wall time, top
    kernels.
+
+Two phases run only when named: ``slab_width`` (weighted FIXED by slab
+width) and ``kernel_variants`` (the off-limits update against the rows
+from scratch by object count, and the phase-profile build's cycles per
+warp and step phase).
 
 Then one JSON line describing the kernels and, last, the device line.
 Without a CUDA device, or without the package beside this script, it
@@ -93,6 +107,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -114,6 +129,14 @@ BLOCK = dict(n_moves_per_step=64, accept_draws=64)  # BASELINE config 3, layout_
 SWEEP_OBJECTS = (32, 100, 256, 512)
 PHASES = ("rng", "kernel_vs_plain", "main_path", "pi", "cli", "prng", "torch_engine_vs_cpu",
           "main_path_torch", "tempering_smc", "time", "profile")
+# named only: weighted FIXED ms/step by slab width (the kernel takes the
+# width at launch), the measurement behind fused_mh.off_slab_width; and the
+# MH kernel's variant builds (kernel_variants below)
+OPTIONAL_PHASES = ("slab_width", "kernel_variants")
+WIDTHS = {100: (8, 16, 32), 256: (16, 32, 64), 512: (32, 64, 128)}
+# the step phases of csrc/fused_mh.cu's MH_PHASE_PROFILE build, in order
+STEP_PHASES = ("move", "barrier_1", "lanes", "partials_entities", "off_update", "barrier_2",
+               "rescans", "off_rows", "barrier_3", "reduce_draw", "barrier_4", "accept_commit")
 # bounds (NVIDIA's H100 SXM data sheet, at 700 W): float32 outside the tensor
 # cores, device memory, and the issue rate of four warp-instructions a clock
 # on each SM
@@ -123,8 +146,10 @@ ISSUE_THREAD_INSTR_PER_SM_CLOCK = 4 * 32
 # operations the fused kernel's function needs, a square root counted as one:
 # one sym_val (2 sub, 2 mul, add, 2 sqrt, sub, compare, select, sub, mul, abs,
 # the mask test), one object's per-object terms (focal, balance, outside area,
-# clearances), and one object's share of each reduced row (an add)
-SYM_VAL_OPS, OBJECT_OPS = 14, 60
+# clearances), and one object's share of each reduced row (an add); one
+# off-limits pair overlap (the later object's box: 4 adds; the overlap: 2
+# max, 2 min, 2 compares, 2 sub, a multiply; the mask multiply and the add)
+SYM_VAL_OPS, OBJECT_OPS, OVERLAP_OPS = 14, 60, 15
 
 
 def say(phase: str, **fields) -> None:
@@ -305,14 +330,35 @@ def fused_bound(F, pk, seed: int, steps: int, n_chains: int, dev) -> dict:
     each matched against every reflection and its own reflection against
     every candidate (2 N sym_val) and its per-object terms rescored; every
     object's share of the reduced rows; and the full match and terms of the
-    first and the final evaluation. Bytes: the poses in and out, the
-    stats and the packed scene, each once."""
+    first and the final evaluation. With the off-limits term in the loop
+    (weighted FIXED) also the pairs it changes: each moved box (a
+    translate's, both of a swap of two; a rotation moves none) against
+    every other object, each pair's overlap added into its row, and the
+    N (N - 1) / 2 pairs of the first and the final evaluation. Bytes: the
+    poses in and out, the stats and the packed scene, each once.
+
+    Beside it, ``scheme_*``: what the kernel's slab state computes for the
+    same steps (where it keeps the state) -- the pair overlaps of every cell
+    a moved box invalidates (the rows of its slab, its column in the later
+    slabs) and each object's row over its slabs."""
     import torch
 
     lanes, unroll = F.step_layout(pk.accept_draws)
     n, rows = pk.n, 6 + pk.n_clr
     n_unf, n_objs = float(pk.scalars[F.S_NUNF]), float(pk.scalars[F.S_NOBJ])
     moved = torch.zeros((), dtype=torch.int64, device=dev)
+    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    scheme_pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    if pk.track_off:
+        # per slab: the pairs of its row (cell (s, i) pairs i with the j > i
+        # of slab s: sum of j over the slab), its size, the objects after it
+        slab = torch.arange(n, device=dev) // F.off_slab_width(n)
+        s_count = F.off_slabs(n)
+        row_pairs = torch.zeros(s_count, dtype=torch.int64, device=dev).index_add_(
+            0, slab, torch.arange(n, device=dev))
+        size = torch.bincount(slab, minlength=s_count)
+        later = size.flip(0).cumsum(0).flip(0) - size
+        unf = pk.unf_idx.long()
     for t in range(steps):
         if t % unroll == 0:
             blk = F.uniform_block(seed, t // unroll, 0, n_chains, dev)
@@ -321,18 +367,39 @@ def fused_bound(F, pk, seed: int, steps: int, n_chains: int, dev) -> dict:
         k1 = torch.clamp_max(torch.floor(u[:, 6] * n_unf), max(n_unf - 1.0, 0.0))
         k2 = torch.clamp_max(torch.floor(u[:, 7] * n_unf), max(n_unf - 1.0, 0.0))
         if n_unf > 0:
-            moved += (kind < 2).sum() + 2 * ((kind == 2) & (k1 != k2) & (n_objs >= 2)).sum()
-    moved = int(moved)
+            swap = (kind == 2) & (k1 != k2) & (n_objs >= 2)
+            moved += (kind < 2).sum() + 2 * swap.sum()
+            if pk.track_off:
+                pairs += (kind == 0).sum() * (n - 1) + swap.sum() * (2 * n - 3)
+                sa, sb = slab[unf[k1.long()]], slab[unf[k2.long()]]
+                one = (kind == 0) * (row_pairs[sa] + later[sa])
+                two = swap * (row_pairs[sa] + (sb != sa) * row_pairs[sb]
+                              + later[sa] - (sb > sa) * size[sb]
+                              + later[sb] - (sa > sb) * size[sa])
+                scheme_pairs += (one + two).sum()
+    moved, pairs, scheme_pairs = int(moved), int(pairs), int(scheme_pairs)
     ops = (moved * (2 * n * SYM_VAL_OPS + OBJECT_OPS) + steps * n_chains * n * rows
            + 2 * n_chains * (n * n * SYM_VAL_OPS + n * (OBJECT_OPS + rows)))
+    extra = {}
+    if pk.track_off:
+        ends = 2 * n_chains * (n * (n - 1) // 2) * OVERLAP_OPS
+        row_adds = int((F.off_slabs(n) - slab).sum()) + 2 * n
+        extra = dict(off_pairs_per_step=pairs / (steps * n_chains),
+                     scheme_operations=ops + scheme_pairs * OVERLAP_OPS
+                     + steps * n_chains * row_adds + ends,
+                     scheme_off_pairs_per_step=scheme_pairs / (steps * n_chains))
+        ops += pairs * OVERLAP_OPS + ends
     scene_bytes = sum(4 * t.numel() for t in (pk.planes, pk.unf_idx, pk.scalars, pk.rel_idx,
                                               pk.rel_p, pk.ang_idx, pk.ang_p, pk.clr_idx,
                                               pk.clr_p))
     nbytes = 2 * 4 * n_chains * n * 6 + 4 * n_chains * 10 + scene_bytes
     t_ops, t_bytes = ops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    if extra:
+        extra["scheme_bound_ms"] = max(extra["scheme_operations"] / F32_PEAK_FLOPS, t_bytes) * 1e3
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                operations=ops, bytes=nbytes, moved_lanes_per_step=moved / (steps * n_chains))
+                operations=ops, bytes=nbytes, moved_lanes_per_step=moved / (steps * n_chains),
+                **extra)
 
 
 def sass_per_sample(lib: Path, kernel: str) -> dict:
@@ -419,12 +486,14 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", help="comma-separated subset of: " + ", ".join(PHASES)
-                    + " (device and build always run; default: all, with the kernels line)")
+    ap.add_argument("--phases", help="comma-separated subset of: "
+                    + ", ".join(PHASES + OPTIONAL_PHASES)
+                    + " (device and build always run; default: all but "
+                    + ", ".join(OPTIONAL_PHASES) + ", with the kernels line)")
     args = ap.parse_args(argv)
     phases = PHASES if args.phases is None else tuple(args.phases.split(","))
-    if set(phases) - set(PHASES):
-        ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
+    if set(phases) - set(PHASES + OPTIONAL_PHASES):
+        ap.error(f"unknown phases {sorted(set(phases) - set(PHASES + OPTIONAL_PHASES))}")
 
     import torch
 
@@ -477,6 +546,11 @@ def main(argv=None) -> int:
     pose0 = head.initial_pose(device=dev).expand(cfg.n_chains, 100, 6).contiguous()
     pk = F.pack_scene(scene, cfg)
     block_pk = F.pack_scene(scene, block_cfg)
+    # weighted FIXED: the off-limits term in the loop, through the slab state
+    fixed_head = dataclasses.replace(head, w_offlimits=-1.5)
+    fixed_scene = fixed_head.build(device=dev)
+    fixed_cfg = dataclasses.replace(cfg, mode=CostMode.FIXED)
+    fixed_pk = F.pack_scene(fixed_scene, fixed_cfg)
     spec32 = demo_scene(32)
     tcfg = SamplerConfig()
     key0 = prng.key(0, dev)
@@ -545,24 +619,30 @@ def main(argv=None) -> int:
         # the paths where most chains accept, so the moves and commits are tested
         hot_cfg = dataclasses.replace(block_cfg, beta=1e-3, adapt=True)
         single_hot_cfg = dataclasses.replace(cfg, beta=1e-3, adapt=True)
-        for name, kcfg, steps in (("single", cfg, cfg.iterations),
-                                  ("single_hot", single_hot_cfg, cfg.iterations),
-                                  ("block", block_cfg, 100), ("block_hot", hot_cfg, 100)):
-            kpk = F.pack_scene(scene, kcfg)
+        fixed_hot_cfg = dataclasses.replace(single_hot_cfg, mode=CostMode.FIXED)
+        for name, kcfg, kscene, steps in (
+                ("single", cfg, scene, cfg.iterations),
+                ("single_hot", single_hot_cfg, scene, cfg.iterations),
+                ("single_hot_fixed", fixed_hot_cfg, fixed_scene, cfg.iterations),
+                ("block", block_cfg, scene, 100), ("block_hot", hot_cfg, scene, 100)):
+            kpk = F.pack_scene(kscene, kcfg)
             k = F.fused_mh_cuda(kpk, pose0, 0, steps)
             p, plain_call_ms[name] = timed(lambda: F.fused_chains_reference(kpk, pose0, 0, steps))
             got = compare(k, p)
             max_err = max(max_err, got["max_abs_err"])
-            say("kernel_vs_plain", objs=100, chains=cfg.n_chains, steps=steps, mode="PARITY",
-                beta=kcfg.beta, adapt=kcfg.adapt, moves_per_step=kcfg.n_moves_per_step,
-                accept_draws=kcfg.accept_draws, plain_call_ms=plain_call_ms[name], **got)
-            if name.endswith("_hot") and got["chains_accepting"] < cfg.n_chains // 2:
-                raise AssertionError(f"block_hot: only {got['chains_accepting']} chains accepted")
+            say("kernel_vs_plain", objs=100, chains=cfg.n_chains, steps=steps, mode=kcfg.mode.name,
+                w_offlimits=float(kscene.w_offlimits), beta=kcfg.beta, adapt=kcfg.adapt,
+                moves_per_step=kcfg.n_moves_per_step, accept_draws=kcfg.accept_draws,
+                plain_call_ms=plain_call_ms[name], **got)
+            if "_hot" in name and got["chains_accepting"] < cfg.n_chains // 2:
+                raise AssertionError(f"{name}: only {got['chains_accepting']} chains accepted")
 
-        # the symmetry state's edge cases: a ragged object count, frozen objects,
-        # -0.0 in the start pose (a single move commits it through every lane),
-        # and widths where the O(N) state pays most; the plain version's
-        # [C, N, N] match stays small at 64 chains
+        # the symmetry and off-limits states' edge cases: a ragged object
+        # count, frozen objects, -0.0 in the start pose (a single move commits
+        # it through every lane; a compound step applies its moves to every
+        # lane), widths where the O(N) state pays most, and the off-limits
+        # cells updated per step of four moves; the plain version's [C, N, N]
+        # match stays small at 64 chains
         for case, n_objs, mode, w_off, moves, draws in (
                 ("ragged", 37, CostMode.PARITY, 0.0, 1, 1),
                 ("ragged", 37, CostMode.FIXED, -1.5, 1, 1),
@@ -570,8 +650,13 @@ def main(argv=None) -> int:
                 ("frozen", 32, CostMode.PARITY, 0.0, 1, 1),
                 ("frozen", 32, CostMode.FIXED, -1.5, 4, 1),
                 ("neg_zero", 32, CostMode.PARITY, 0.0, 1, 1),
+                ("neg_zero", 32, CostMode.PARITY, 0.0, 4, 4),
+                ("neg_zero", 32, CostMode.FIXED, -1.5, 4, 4),
                 ("wide", 256, CostMode.PARITY, 0.0, 1, 1),
-                ("wide", 512, CostMode.PARITY, 0.0, 1, 1)):
+                ("wide", 512, CostMode.PARITY, 0.0, 1, 1),
+                ("wide", 256, CostMode.FIXED, -1.5, 1, 1),
+                ("wide", 512, CostMode.FIXED, -1.5, 1, 1),
+                ("off_cells", 100, CostMode.FIXED, -1.5, 4, 4)):
             wspec = demo_scene(n_objs)
             if case == "frozen":
                 wspec.frozen = np.arange(n_objs) % 3 == 0
@@ -581,8 +666,9 @@ def main(argv=None) -> int:
             if case == "neg_zero":
                 wpose[:, ::2, 2:] = -0.0
                 wpose[:, 0, :2] = -0.0
+            hot = case in ("neg_zero", "off_cells") or (case == "wide" and w_off != 0.0)
             wcfg = SamplerConfig(mode=mode, n_moves_per_step=moves, accept_draws=draws,
-                                 beta=1e-3 if case == "neg_zero" else 2.0)
+                                 beta=1e-3 if hot else 2.0)
             wpk = F.pack_scene(wscene, wcfg)
             got = compare(F.fused_mh_cuda(wpk, wpose, 5, 50),
                           F.fused_chains_reference(wpk, wpose, 5, 50))
@@ -590,14 +676,18 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{case}: no chain accepted")
             max_err = max(max_err, got["max_abs_err"])
             say("kernel_vs_plain", case=case, objs=n_objs, chains=64, steps=50, mode=mode.name,
-                w_offlimits=w_off, moves_per_step=moves, accept_draws=draws,
-                sym_incremental=F.sym_incremental(moves, n_objs), **got)
+                w_offlimits=w_off, beta=wcfg.beta, moves_per_step=moves, accept_draws=draws,
+                sym_incremental=F.sym_incremental(moves, n_objs),
+                off_incremental=wpk.track_off and F.off_incremental(moves, n_objs, wpk.n_clr),
+                **got)
 
     if "main_path" in phases:
         # 5. main paths
         fused_launches += run_main_path("main_path", head, cfg, "cuda", fused_counters)
+        fused_launches += run_main_path("main_path_fixed", fixed_head, fixed_cfg, "cuda",
+                                        fused_counters)
         fused_launches += run_main_path("main_path_block", head, block_cfg, None, fused_counters)
-        fused_calls += 2
+        fused_calls += 3
 
     if "pi" in phases:
         # 6. pi
@@ -712,7 +802,7 @@ def main(argv=None) -> int:
             if events.count("round") != 10 or events[0] != "run_config" or events[-1] != "result":
                 raise AssertionError(f"logged {engine} run events {events}")
         n_clr = int((scene.clr_mask > 0).sum())
-        chosen = auto_engine(dev, cfg, scene.n_pad_objs, n_clr)
+        chosen = auto_engine(dev, cfg, scene.n_pad_objs, n_clr, F.tracks_off(scene, cfg))
         zero_counts()
         auto_res = suggest_layouts(head, cfg, key=0, device="cuda")
         auto_counts = read_counts()
@@ -723,7 +813,7 @@ def main(argv=None) -> int:
         fused_calls += 1
         # past the kernel's limit of 120 accept draws auto takes the CUDA graph
         wide = SamplerConfig(iterations=20, n_chains=1024, accept_draws=121)
-        wide_chosen = auto_engine(dev, wide, scene.n_pad_objs, n_clr)
+        wide_chosen = auto_engine(dev, wide, scene.n_pad_objs, n_clr, F.tracks_off(scene, wide))
         zero_counts()
         wide_res = suggest_layouts(head, wide, key=0, device="cuda")
         wide_counts = read_counts()
@@ -817,9 +907,9 @@ def main(argv=None) -> int:
             spose = sspec.initial_pose(device=dev).expand(cfg.n_chains, n_objs, 6).contiguous()
             st = [events_ms(lambda s=s: F.fused_mh_cuda(spk, spose, 0, s), 3) for s in ks]
             sweep[n_objs] = dict(ms_per_step=slope(ks, st), ms=dict(zip(map(str, ks), st)),
-                                 smem_bytes=F.smem_bytes(n_objs, spk.n_clr, 1),
-                                 blocks_per_sm=blocks_per_sm(fused_regs,
-                                                             F.smem_bytes(n_objs, spk.n_clr, 1)))
+                                 smem_bytes=F.smem_bytes(n_objs, spk.n_clr, 1, False),
+                                 blocks_per_sm=blocks_per_sm(
+                                     fused_regs, F.smem_bytes(n_objs, spk.n_clr, 1, False)))
         say("time_objects_sweep", card=smi, chains=cfg.n_chains, moves_per_step=1, mode="PARITY",
             registers=fused_regs, objects={str(k): v for k, v in sweep.items()},
             ratio_512_to_100=sweep[512]["ms_per_step"] / sweep[100]["ms_per_step"])
@@ -830,11 +920,26 @@ def main(argv=None) -> int:
         say("time", card=smi, objs=100, chains=n_sms, moves_per_step=1, one_chain_per_sm=True,
             kernel_ms_per_step=slope(ks, lt), kernel_ms=dict(zip(map(str, ks), lt)),
             ratio_to_1024_chains=slope(ks, lt) / sweep[100]["ms_per_step"])
-        wscene = dataclasses.replace(scene, w_offlimits=torch.tensor(-1.5, device=dev))
-        wpk = F.pack_scene(wscene, SamplerConfig(mode=CostMode.FIXED))
-        wt = [events_ms(lambda s=s: F.fused_mh_cuda(wpk, pose0, 0, s), 3) for s in ks]
-        say("time", card=smi, objs=100, chains=cfg.n_chains, mode="FIXED", w_offlimits=-1.5,
-            kernel_ms_per_step=slope(ks, wt), kernel_ms=dict(zip(map(str, ks), wt)))
+        # weighted FIXED: the off-limits slab state, by object count
+        wsweep = {}
+        for n_objs in SWEEP_OBJECTS:
+            sspec = dataclasses.replace(demo_scene(n_objs), w_offlimits=-1.5)
+            spk = F.pack_scene(sspec.build(device=dev), fixed_cfg)
+            spose = sspec.initial_pose(device=dev).expand(cfg.n_chains, n_objs, 6).contiguous()
+            st = [events_ms(lambda s=s: F.fused_mh_cuda(spk, spose, 0, s), 3) for s in ks]
+            smem = F.smem_bytes(n_objs, spk.n_clr, 1, True)
+            wsweep[n_objs] = dict(ms_per_step=slope(ks, st), ms=dict(zip(map(str, ks), st)),
+                                  smem_bytes=smem, blocks_per_sm=blocks_per_sm(fused_regs, smem),
+                                  slab_width=F.off_slab_width(n_objs), slabs=F.off_slabs(n_objs),
+                                  ratio_to_parity=slope(ks, st) / sweep[n_objs]["ms_per_step"])
+        say("time_objects_sweep", card=smi, chains=cfg.n_chains, moves_per_step=1, mode="FIXED",
+            w_offlimits=-1.5, registers=fused_regs, objects={str(k): v for k, v in wsweep.items()},
+            ratio_512_to_100=wsweep[512]["ms_per_step"] / wsweep[100]["ms_per_step"])
+        fixed_call_ms = events_ms(lambda: F.fused_mh_cuda(fixed_pk, pose0, 0, cfg.iterations), 5)
+        fixed_b = fused_bound(F, fixed_pk, 0, cfg.iterations, cfg.n_chains, dev)
+        say("bound", card=smi, kernel="fused_mh", mode="FIXED", w_offlimits=-1.5, objs=100,
+            chains=cfg.n_chains, steps=cfg.iterations, kernel_call_ms=fixed_call_ms, **fixed_b,
+            share_of_bound=fixed_b["bound_ms"] / fixed_call_ms)
 
         pks, pps = (1 << 32, 1 << 33, 1 << 34), (1 << 26, 1 << 27, 1 << 28)
         pkt = [events_ms(lambda n=n: P.pi_hits_cuda(0, n, dev), 3) for n in pks]
@@ -930,6 +1035,86 @@ def main(argv=None) -> int:
         say("time_tempering_smc", card=smi, objs=32, replicas=64,
             tempering_sweeps_per_s=64 / (per_step * 1e-3), tempering_ms_per_step=per_step,
             tempering_ms=dict(zip(map(str, rounds), rt)), smc_wall_ms=smc_ms)
+
+    if "slab_width" in phases:
+        # weighted FIXED by slab width beside PARITY, one move: the width
+        # trades the row update's pairs (~W N / 2) against the cells' shared
+        # memory (2 N^2 / W words) and so the blocks an SM holds
+        chosen = F.off_slab_width
+        ks = (10, 505, 1010)
+        for n_objs, widths in WIDTHS.items():
+            sspec = dataclasses.replace(demo_scene(n_objs), w_offlimits=-1.5)
+            spose = sspec.initial_pose(device=dev).expand(cfg.n_chains, n_objs, 6).contiguous()
+            rows = {}
+            for w in (None, *widths):
+                F.off_slab_width = chosen if w is None else (lambda n, w=w: w)
+                spk = (F.pack_scene(demo_scene(n_objs).build(device=dev), cfg) if w is None
+                       else F.pack_scene(sspec.build(device=dev), fixed_cfg))
+                st = [events_ms(lambda s=s: F.fused_mh_cuda(spk, spose, 0, s), 3) for s in ks]
+                smem = F.smem_bytes(n_objs, spk.n_clr, 1, spk.track_off)
+                rows["parity" if w is None else str(w)] = dict(
+                    ms_per_step=slope(ks, st), smem_bytes=smem,
+                    blocks_per_sm=blocks_per_sm(fused_regs, smem))
+            F.off_slab_width = chosen
+            say("slab_width", card=smi, objs=n_objs, chains=cfg.n_chains, moves_per_step=1,
+                chosen_width=chosen(n_objs), rows=rows)
+
+    if "kernel_variants" in phases:
+        # the MH kernel's design choices, each against the default in this
+        # run: the off-limits update against the rows from scratch by object
+        # count, in turns (A B B A; fused_mh.off_incremental rebound), then
+        # the phase profile build (-DMH_PHASE_PROFILE): clock cycles per step
+        # of each warp's lane 0 in each phase of a single-move step, 1024
+        # chains and one per SM
+        ks = (10, 505, 1010)
+        default_load = _build.load
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+        def step_ms(spk, spose):
+            return slope(ks, [events_ms(lambda s=s: F.fused_mh_cuda(spk, spose, 0, s), 3)
+                              for s in ks])
+
+        def case(n_objs, mode, w_off, chains=cfg.n_chains):
+            sspec = dataclasses.replace(demo_scene(n_objs), w_offlimits=w_off)
+            return (F.pack_scene(sspec.build(device=dev), SamplerConfig(mode=mode)),
+                    sspec.initial_pose(device=dev).expand(chains, n_objs, 6).contiguous())
+
+        chosen = F.off_incremental
+        schemes = {}
+        for n_objs in (32, 37, 48, 64, 100, 256, 1024):
+            spk, spose = case(n_objs, CostMode.FIXED, -1.5)
+            row = schemes.setdefault(str(n_objs), dict(chosen=chosen(1, n_objs, spk.n_clr)))
+            for inc in (True, False, False, True):
+                F.off_incremental = lambda m, n, c, inc=inc: inc
+                row.setdefault("update" if inc else "recompute", []).append(step_ms(spk, spose))
+            F.off_incremental = chosen
+        say("kernel_variants", card=smi, chains=cfg.n_chains, moves_per_step=1,
+            w_offlimits=-1.5, off_scheme_ms_per_step=schemes)
+
+        plib = default_load(("MH_PHASE_PROFILE",))
+        for fn in ("mh_phase_cycles_read", "mh_phase_cycles_reset"):
+            getattr(plib, fn).argtypes = [ctypes.c_void_p] if fn.endswith("read") else []
+            getattr(plib, fn).restype = ctypes.c_int
+        _build.load = lambda: plib
+        buf = (ctypes.c_ulonglong * (4 * len(STEP_PHASES) + 1))()
+        for key in ("PARITY_32", "FIXED_weighted_32", "PARITY_100", "FIXED_weighted_100"):
+            n_objs = int(key.rsplit("_", 1)[1])
+            for chains in (cfg.n_chains, n_sms):
+                spk, spose = case(n_objs, CostMode[key.split("_")[0]],
+                                  -1.5 if "weighted" in key else 0.0, chains)
+                if plib.mh_phase_cycles_reset():
+                    raise AssertionError("phase profile reset failed")
+                F.fused_mh_cuda(spk, spose, 0, 1000)
+                torch.cuda.synchronize()
+                if plib.mh_phase_cycles_read(ctypes.addressof(buf)):
+                    raise AssertionError("phase profile read failed")
+                per = [[buf[w * len(STEP_PHASES) + k] / (buf[-1] * 1000)
+                        for k in range(len(STEP_PHASES))] for w in range(4)]
+                say("kernel_phases", card=smi, case=key, chains=chains, steps=1000,
+                    cycles_per_step={ph: [round(per[w][k], 1) for w in range(4)]
+                                     for k, ph in enumerate(STEP_PHASES)},
+                    warp0_cycles_per_step=round(sum(per[0]), 1))
+        _build.load = default_load
 
     if "profile" in phases:
         # 13. profile: what the torch engine's step is made of on the card

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from mh_tpu_torch.config import SamplerConfig
-from mh_tpu_torch.kernels.fused_mh import kernel_takes, run_chains_fused
+from mh_tpu_torch.kernels.fused_mh import kernel_takes, run_chains_fused, tracks_off
 from mh_tpu_torch.models.scene import Scene, SceneSpec
 from mh_tpu_torch.sampler import prng
 from mh_tpu_torch.sampler.mh import (
@@ -143,7 +143,7 @@ def _dispatch_layouts(scene, cfg, key, pose0, engine, logger, log_every, device)
 
     if engine == "auto":
         n_clr = int(torch.sum(scene.clr_mask > 0))
-        engine = auto_engine(device, cfg, scene.n_pad_objs, n_clr)
+        engine = auto_engine(device, cfg, scene.n_pad_objs, n_clr, tracks_off(scene, cfg))
     if logger is not None:
         logger.log_config(cfg, engine=engine, n_objs=n_real, n_chains=cfg.n_chains)
 
@@ -173,8 +173,11 @@ def _dispatch_layouts(scene, cfg, key, pose0, engine, logger, log_every, device)
     ), engine
 
 
-def auto_engine(device, cfg: SamplerConfig, n_pad_objs: int, n_clearances: int) -> str:
-    """The ``engine="auto"`` decision, a pure function of the run's config.
+def auto_engine(device, cfg: SamplerConfig, n_pad_objs: int, n_clearances: int,
+                track_off: bool) -> str:
+    """The ``engine="auto"`` decision, a pure function of the run's config
+    (``track_off``: FIXED mode with an off-limits weight, ``tracks_off``,
+    whose slab state takes more of the kernel's shared memory).
 
     On the CPU, ``"torch"`` (as ``mh_tpu`` picks its XLA scan off the TPU).
     On CUDA, ``"fused"`` wherever the kernel takes the config, else
@@ -187,7 +190,7 @@ def auto_engine(device, cfg: SamplerConfig, n_pad_objs: int, n_clearances: int) 
     """
     if torch.device(device).type != "cuda":
         return "torch"
-    if kernel_takes(cfg, n_pad_objs, n_clearances):
+    if kernel_takes(cfg, n_pad_objs, n_clearances, track_off):
         return "fused"
     return "torch_graph"
 

@@ -36,8 +36,8 @@ _SIGNATURES = {
     # csrc/fused_mh.cu: pose_in, pose_out, stats, planes, unf_idx, scalars,
     # rel_idx, rel_p, ang_idx, ang_p, clr_idx, clr_p, n_rel, n_ang, n_clr, n,
     # n_chains, seed, iterations, first_chain, parity, track_off, adapt, moves,
-    # accept_draws, incremental, stream
-    "mh_fused_run": [_c_void_p] * 12 + [_c_int] * 5 + [_c_uint32] + [_c_int] * 8 + [_c_void_p],
+    # accept_draws, incremental, off_width, off_incremental, stream
+    "mh_fused_run": [_c_void_p] * 12 + [_c_int] * 5 + [_c_uint32] + [_c_int] * 10 + [_c_void_p],
     # csrc/fused_mh.cu: out, seed, counter, first_chain, n_chains, stream
     "mh_uniform_block": [_c_void_p, _c_uint32, _c_uint32, _c_int, _c_int, _c_void_p],
     # csrc/pi_kernel.cu: partial, n_blocks, seed, total, stream
@@ -61,8 +61,12 @@ def _sources() -> list[Path]:
     return sorted(SRC_DIR.glob("*.cu"))
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: tuple[str, ...]) -> list[str]:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def library_path(defines: tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for src in _sources() + sorted(SRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -70,9 +74,11 @@ def library_path() -> Path:
 
 
 @functools.cache
-def build() -> tuple[Path, float, str]:
-    """Compile the kernels if needed: ``(library, seconds, compiler output)``."""
-    lib = library_path()
+def build(defines: tuple[str, ...] = ()) -> tuple[Path, float, str]:
+    """Compile the kernels if needed: ``(library, seconds, compiler output)``.
+    ``defines`` (macro names) build a variant of the same sources, such as
+    ``chip_smoke.py``'s instrumented ones; the port loads only the default."""
+    lib = library_path(defines)
     if lib.exists():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -81,7 +87,7 @@ def build() -> tuple[Path, float, str]:
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())],
+            [nvcc(), *_flags(defines), "-o", tmp, *map(str, _sources())],
             capture_output=True, text=True,
         )
         if proc.returncode:
@@ -94,9 +100,9 @@ def build() -> tuple[Path, float, str]:
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
+def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The built kernel library with every entry point's signature declared."""
-    lib = ctypes.CDLL(str(build()[0]))
+    lib = ctypes.CDLL(str(build(defines)[0]))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -65,10 +65,10 @@ def test_auto_is_fused_and_runs_the_plain_version_on_cpu():
     the config; on the CPU the torch engine (mh_tpu picks its XLA scan off
     the TPU). engine="fused" on the CPU runs the kernel's plain version."""
     cfg = mh_tpu_torch.SamplerConfig()
-    assert auto_engine("cuda", cfg, 100, 2) == "fused"
+    assert auto_engine("cuda", cfg, 100, 2, False) == "fused"
     assert auto_engine(torch.device("cuda:0"), dataclasses.replace(
-        cfg, n_moves_per_step=64, accept_draws=64), 100, 2) == "fused"
-    assert auto_engine("cpu", cfg, 100, 2) == "torch"
+        cfg, n_moves_per_step=64, accept_draws=64), 100, 2, False) == "fused"
+    assert auto_engine("cpu", cfg, 100, 2, False) == "torch"
     spec = mh_tpu_torch.demo_scene(10)
     calls = TF.fused_chains_reference.calls
     res = mh_tpu_torch.suggest_layouts(
@@ -91,10 +91,10 @@ def test_auto_on_cuda_leaves_the_fused_kernel_where_it_cannot_run():
     auto takes the torch engine as a CUDA graph, whatever serve says; the
     choice is made from the config, before any launch."""
     many_draws = mh_tpu_torch.SamplerConfig(accept_draws=121)
-    assert auto_engine("cuda", many_draws, 100, 2) == "torch_graph"
-    assert not TF.kernel_takes(mh_tpu_torch.SamplerConfig(), 2600, 2)
-    assert auto_engine("cuda", mh_tpu_torch.SamplerConfig(), 2600, 2) == "torch_graph"
-    assert TF.kernel_takes(mh_tpu_torch.SamplerConfig(), 2500, 2)
+    assert auto_engine("cuda", many_draws, 100, 2, False) == "torch_graph"
+    assert not TF.kernel_takes(mh_tpu_torch.SamplerConfig(), 2600, 2, False)
+    assert auto_engine("cuda", mh_tpu_torch.SamplerConfig(), 2600, 2, False) == "torch_graph"
+    assert TF.kernel_takes(mh_tpu_torch.SamplerConfig(), 2500, 2, False)
     assert "serve" not in inspect.signature(auto_engine).parameters
 
 

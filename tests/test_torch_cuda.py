@@ -100,6 +100,67 @@ def test_symmetry_state_matches_reference(cuda, case, n, moves, draws):
     assert (got[2] > 0).all()
 
 
+@pytest.mark.parametrize("n,moves,draws,chains", [
+    (37, 1, 1, 64), (61, 1, 1, 64), (100, 1, 1, 64), (100, 4, 4, 64), (32, 64, 64, 64),
+    (512, 1, 1, 16), (1100, 1, 1, 4), (1500, 1, 1, 2)])
+def test_off_state_matches_reference(cuda, n, moves, draws, chains):
+    """Weighted FIXED: the kernel's off-limits slab sums (the state's
+    updated cells, or rows from scratch where 2 M >= S, the cells are few
+    or, past 1,455 objects, the state does not fit in shared memory)
+    against the plain version's from-scratch slab sums, in every chain,
+    hot."""
+    spec = mh_tpu_torch.demo_scene(n)
+    scene = dataclasses.replace(spec.build(device=cuda),
+                                w_offlimits=torch.tensor(-1.5, device=cuda))
+    cfg = mh_tpu_torch.SamplerConfig(mode=mh_tpu_torch.CostMode.FIXED, beta=1e-3, adapt=True,
+                                     n_moves_per_step=moves, accept_draws=draws)
+    pk = TF.pack_scene(scene, cfg)
+    assert pk.track_off
+    pose0 = spec.initial_pose(device=cuda).expand(chains, n, 6).contiguous()
+    got = TF.fused_mh_cuda(pk, pose0, 3, 40)
+    want = TF.fused_chains_reference(pk, pose0, 3, 40)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert (got[2] > 0).all()
+
+
+@pytest.mark.parametrize("mode,w_off", [("PARITY", 0.0), ("FIXED", -1.5)])
+def test_compound_neg_zero_matches_reference(cuda, mode, w_off):
+    """A start pose holding -0.0 through (M, K) = (4, 4) steps: the kernel
+    applies each move to every lane, as the reference's plane expressions
+    do, so the zeros' signs equal the plain version's in every chain."""
+    spec = mh_tpu_torch.demo_scene(32)
+    scene = dataclasses.replace(spec.build(device=cuda),
+                                w_offlimits=torch.tensor(w_off, device=cuda))
+    cfg = mh_tpu_torch.SamplerConfig(mode=mh_tpu_torch.CostMode[mode], beta=1e-3,
+                                     n_moves_per_step=4, accept_draws=4)
+    pk = TF.pack_scene(scene, cfg)
+    pose0 = spec.initial_pose(device=cuda).expand(64, 32, 6).clone()
+    pose0[:, ::2, 2:] = -0.0
+    pose0[:, 0, :2] = -0.0
+    got = TF.fused_mh_cuda(pk, pose0, 3, 60)
+    want = TF.fused_chains_reference(pk, pose0, 3, 60)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert (got[2] > 0).all()
+    assert not torch.signbit(got[0][got[0] == 0]).all()
+
+
+def test_accept_count_exact_past_2_24(cuda):
+    """One chain accepting every one of 2^24 + 1 steps (beta = 0, and the
+    minimum of 2 accept draws is never 1.0): the count comes back exact,
+    where f32 would have rounded it to 2^24."""
+    spec = mh_tpu_torch.demo_scene(2)
+    cfg = mh_tpu_torch.SamplerConfig(beta=0.0, accept_draws=2)
+    pk = TF.pack_scene(spec.build(device=cuda), cfg)
+    steps = (1 << 24) + 1
+    _, _, n_acc, _ = TF.fused_mh_cuda(pk, spec.initial_pose(device=cuda)[None].contiguous(), 0,
+                                      steps)
+    assert n_acc.dtype == torch.int32 and n_acc.tolist() == [steps]
+
+
 @pytest.mark.parametrize("seed,total", [(0, 1 << 24), (7, 12345), (-3, (1 << 22) + 1), (1, 0)])
 def test_pi_hits_equal_reference(cuda, seed, total):
     launches = TP.pi_hits_cuda.launches
