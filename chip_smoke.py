@@ -75,7 +75,21 @@ non-zero):
    steps, with and without ``adaptive``) on CUDA against the CPU (at most
    1 of 24 rounds' swap rates may differ), and ``python -m mh_tpu_torch
    temper`` / ``smc`` in subprocesses;
-12. time: CUDA-event times, as the slope of the minimum over repeats
+12. sharded: chains over a mesh of 4 shards on card 0 (and, on a host
+   with more cards, one shard per card): ``suggest_layouts(demo_scene(100),
+   1024 chains, 1000 steps, engine="fused", mesh=...)`` in PARITY, weighted
+   FIXED and (M, K) = (64, 64) must launch the kernel once per shard, call
+   no plain version and equal the call without a mesh bit for bit in every
+   chain; ``run_chains_sharded`` (100 objects x 1024 chains x 20 steps)
+   against ``run_chains`` prints the chains that differ in any bit;
+   ``run_chains_collective`` (10 rounds of 10 steps), tempering (with and
+   without ``adapt_ladder``) and SMC poses (with and without ``adaptive``)
+   at phase 11's sizes must equal one shard bit for bit, SMC's ESS and
+   log-evidence within rtol 1e-6; and ``suggest_layouts(demo_scene(4096),
+   2 chains, 10 steps, objs_devices=4)`` (past the kernel's object limit)
+   must accept as the unsharded torch engine, with poses within 1e-4 and
+   totals matching ``cost_terms``; each row prints its ms per call;
+13. time: CUDA-event times, as the slope of the minimum over repeats
    against the step or sample count, for each kernel and its plain version,
    for the torch engine eager and as a CUDA graph beside the fused kernel
    (100 objects x 1024 chains, one move and M = 64, with the graph's
@@ -89,7 +103,7 @@ non-zero):
    the slab state's own count), and pi's SASS instructions
    per sample (``cuobjdump -sass``) over the SMs' issue rate at their top
    clock;
-13. profile: ``torch.profiler`` over 10 steps of the torch engine at 100
+14. profile: ``torch.profiler`` over 10 steps of the torch engine at 100
    objects x 1024 chains, one move and M = K = 64, eager and as a CUDA
    graph: kernels per step, device-busy share of the wall time, top
    kernels.
@@ -128,7 +142,7 @@ COMPOUND_CASES = ((4, 1), (4, 4), (1, 16), (1, 30))  # (moves per step, accept d
 BLOCK = dict(n_moves_per_step=64, accept_draws=64)  # BASELINE config 3, layout_block
 SWEEP_OBJECTS = (32, 100, 256, 512)
 PHASES = ("rng", "kernel_vs_plain", "main_path", "pi", "cli", "prng", "torch_engine_vs_cpu",
-          "main_path_torch", "tempering_smc", "time", "profile")
+          "main_path_torch", "tempering_smc", "sharded", "time", "profile")
 # named only: weighted FIXED ms/step by slab width (the kernel takes the
 # width at launch), the measurement behind fused_mh.off_slab_width; and the
 # MH kernel's variant builds (kernel_variants below)
@@ -265,6 +279,32 @@ def same_bits(a, b) -> bool:
         return all(same_bits(getattr(a, f), getattr(b, f))
                    for f in ("points", "costs", "accept_rate", "step_scale"))
     return np.asarray(a).tobytes() == np.asarray(b).tobytes()
+
+
+def _chains_differing(pairs, n: int) -> int:
+    """Chains whose rows differ in any bit across ``pairs`` of arrays or
+    tensors with the chains leading."""
+    import numpy as np
+
+    differ = np.zeros(n, bool)
+    for a, b in pairs:
+        a, b = (np.ascontiguousarray(t.cpu().numpy() if hasattr(t, "cpu") else t) for t in (a, b))
+        differ |= (a.view(np.uint8).reshape(n, -1) != b.view(np.uint8).reshape(n, -1)).any(1)
+    return int(differ.sum())
+
+
+def layout_chains_differing(a, b) -> int:
+    """Chains of two LayoutResults that differ in any bit."""
+    return _chains_differing([(getattr(a, f), getattr(b, f))
+                              for f in ("points", "costs", "accept_rate", "step_scale")],
+                             len(a.points))
+
+
+def state_chains_differing(a, b) -> int:
+    """Chains of two MHStates that differ in any bit."""
+    return _chains_differing([(a.pose, b.pose), (a.costs.as_vector(), b.costs.as_vector()),
+                              (a.n_accept, b.n_accept), (a.log_scale, b.log_scale)],
+                             a.pose.shape[0])
 
 
 def profile_steps(scene, pose0, cfg, graph: bool, steps: int) -> dict:
@@ -504,11 +544,13 @@ def main(argv=None) -> int:
     import numpy as np
 
     import mh_tpu_torch
-    from mh_tpu_torch import CostMode, SamplerConfig, cli, demo_scene, suggest_layouts
+    from mh_tpu_torch import CostMode, SamplerConfig, cli, cost_terms, demo_scene, suggest_layouts
     from mh_tpu_torch.api import auto_engine
     from mh_tpu_torch.kernels import _build
     from mh_tpu_torch.kernels import fused_mh as F
     from mh_tpu_torch.kernels import pi_kernel as P
+    from mh_tpu_torch.parallel.mesh import chain_mesh
+    from mh_tpu_torch.parallel.sharded import run_chains_collective, run_chains_sharded
     from mh_tpu_torch.sampler import mh as M
     from mh_tpu_torch.sampler import prng
     from mh_tpu_torch.sampler.smc import run_smc
@@ -869,8 +911,124 @@ def main(argv=None) -> int:
                                      f"\n{proc.stderr[-4000:]}")
             say("cli", argv=argv, rc=proc.returncode, output=json.loads(proc.stdout))
 
+    if "sharded" in phases:
+        # 12. chains over a device mesh: 4 shards of card 0 (and, on a host
+        # with more cards, one shard per card) against one shard
+        dev0 = torch.device("cuda", 0)
+        meshes = {"cuda0_x4": chain_mesh(devices=[dev0] * 4)}
+        if torch.cuda.device_count() > 1:
+            meshes["every_card"] = chain_mesh()
+        mesh4, mesh1 = meshes["cuda0_x4"], chain_mesh(devices=[dev0])
+        # the fused kernel, once per shard keyed by its first global chain
+        for name, rspec, rcfg in (("parity", head, cfg), ("fixed_weighted", fixed_head, fixed_cfg),
+                                  ("block", head, dataclasses.replace(cfg, **BLOCK))):
+            def one_call():
+                return suggest_layouts(rspec, rcfg, key=0, engine="fused", device="cuda")
+
+            zero_counts()
+            want = one_call()
+            want_launches = F.fused_mh_cuda.launches
+            want_ms = events_ms(one_call, 3)
+            for mname, mesh in meshes.items():
+                def sharded_call():
+                    return suggest_layouts(rspec, rcfg, key=0, engine="fused", mesh=mesh)
+
+                zero_counts()
+                got = sharded_call()
+                counts = read_counts()
+                got_ms = events_ms(sharded_call, 3)
+                shards = mesh.shape["chains"]
+                launches, plain = (counts["fused_mh_cuda.launches"],
+                                   counts["fused_chains_reference.calls"])
+                differ = layout_chains_differing(got, want)
+                if launches != shards or plain or differ:
+                    raise AssertionError(f"sharded fused {name} on {mname}: {launches} launches, "
+                                         f"{plain} plain calls, {differ} chains differ")
+                say("sharded_fused", path=name, mesh=mname, shards=shards, objs=100,
+                    chains=rcfg.n_chains, steps=rcfg.iterations, mode=rcfg.mode.name,
+                    moves_per_step=rcfg.n_moves_per_step, accept_draws=rcfg.accept_draws,
+                    launches=launches, plain_calls=plain, chains_differing=differ,
+                    chains_accepting=int((got.accept_rate > 0).sum()), call_ms=got_ms,
+                    one_launch_call_ms=want_ms, one_launch_launches=want_launches,
+                    card=smi)
+
+        # the torch engine and collective adaptation, 4 shards against 1
+        ecfg = SamplerConfig(iterations=20, n_chains=1024)
+        one, one_ms = timed(lambda: M.run_chains(key0, pose100, scene, ecfg)[0])
+        four, four_ms = timed(lambda: run_chains_sharded(key0, pose100, scene, ecfg, mesh4))
+        say("sharded_torch", objs=100, chains=ecfg.n_chains, steps=ecfg.iterations, shards=4,
+            chains_differing=state_chains_differing(four, one), call_ms=four_ms,
+            one_shard_call_ms=one_ms, card=smi)
+        ccfg = SamplerConfig(iterations=0, n_chains=1024, adapt_rate=0.3, target_accept=0.3)
+        outs = {}
+        for mname, mesh in (("one", mesh1), ("four", mesh4)):
+            outs[mname] = timed(lambda: run_chains_collective(key0, pose100, scene, ccfg, mesh,
+                                                              rounds=10, steps_per_round=10))
+        (c1, c1_ms), (c4, c4_ms) = outs["one"], outs["four"]
+        if not (torch.equal(c1[1], c4[1]) and torch.equal(c1[2], c4[2])):
+            raise AssertionError(f"collective: 4 shards {c4[1].tolist()} {float(c4[2])} against "
+                                 f"1 shard {c1[1].tolist()} {float(c1[2])}")
+        say("sharded_collective", objs=100, chains=ccfg.n_chains, rounds=10, steps_per_round=10,
+            shards=4, rates=c4[1].tolist(), log_scale=float(c4[2]), rates_bitwise=True,
+            chains_differing=state_chains_differing(c4[0], c1[0]), call_ms=c4_ms,
+            one_shard_call_ms=c1_ms, card=smi)
+
+        # tempering and SMC (BASELINE config 5's sizes), 4 shards against 1
+        pose32, scene32 = spec32.initial_pose(device=dev), spec32.build(device=dev)
+        for adapt in (False, True):
+            (a, a_ms), (b, b_ms) = (timed(lambda m=m: run_tempered(
+                prng.key(0, dev), pose32, scene32, tcfg, m, 64, exchange_every=5, rounds=24,
+                adapt_ladder=adapt)) for m in (None, mesh4))
+            if not all(torch.equal(x, y) for x, y in zip((a[0].pose, *a[1:]), (b[0].pose, *b[1:]))):
+                raise AssertionError(f"tempering (adapt_ladder={adapt}): 4 shards differ from 1")
+            say("sharded_tempering", replicas=64, objs=32, exchange_every=5, rounds=24,
+                adapt_ladder=adapt, shards=4, bitwise=True, call_ms=b_ms, one_shard_call_ms=a_ms,
+                card=smi)
+        for adaptive in (False, True):
+            (a, a_ms), (b, b_ms) = (timed(lambda m=m: run_smc(
+                prng.key(0, dev), pose32, scene32, tcfg, m, 64, n_stages=8, mutate_steps=5,
+                adaptive=adaptive)) for m in (None, mesh4))
+            if not torch.equal(a[0].pose, b[0].pose):
+                raise AssertionError(f"smc (adaptive={adaptive}): 4 shards' poses differ from 1")
+            for k in ("ess", "log_evidence"):
+                np.testing.assert_allclose(b[1][k].cpu().numpy(), a[1][k].cpu().numpy(), rtol=1e-6)
+            say("sharded_smc", particles=64, objs=32, stages=8, mutate_steps=5, adaptive=adaptive,
+                shards=4, poses_bitwise=True,
+                log_evidence_rel_gap=abs(float(b[1]["log_evidence"] / a[1]["log_evidence"]) - 1),
+                call_ms=b_ms, one_shard_call_ms=a_ms, card=smi)
+
+        # a scene past the kernel's object limit: the objective row-sharded
+        # over 4 objs shards of card 0, against the unsharded torch engine
+        huge = demo_scene(4096)
+        huge_scene = huge.build(device=dev)
+        hcfg = SamplerConfig(iterations=10, n_chains=2)
+        if F.kernel_takes(hcfg, 4096, int((huge_scene.clr_mask > 0).sum()), False):
+            raise AssertionError("the fused kernel takes 4,096 objects; pick a larger scene")
+        zero_counts()
+        got, got_ms = timed(lambda: suggest_layouts(huge, hcfg, key=0, objs_devices=4,
+                                                    device="cuda"))
+        if any(read_counts().values()):
+            raise AssertionError(f"the objs-sharded run launched a kernel: {read_counts()}")
+        want, want_ms = timed(lambda: suggest_layouts(huge, hcfg, key=0, engine="torch",
+                                                      device="cuda"))
+        if not np.array_equal(got.accept_rate, want.accept_rate):
+            raise AssertionError(f"objs-sharded accepts {got.accept_rate} != {want.accept_rate}")
+        np.testing.assert_allclose(got.points, want.points, rtol=1e-4, atol=1e-4)
+        ref = cost_terms(torch.as_tensor(got.points, device=dev), huge_scene,
+                         hcfg.mode).total.cpu().numpy()
+        np.testing.assert_allclose(got.costs[:, 0], ref, rtol=1e-4, atol=1e-2)
+        short = dataclasses.replace(hcfg, iterations=2)
+        _, short_ms = timed(lambda: suggest_layouts(huge, short, key=0, objs_devices=4,
+                                                    device="cuda"))
+        say("sharded_objs", objs=4096, chains=hcfg.n_chains, steps=hcfg.iterations, objs_shards=4,
+            accept_rate=got.accept_rate.tolist(),
+            max_pose_gap=float(np.abs(got.points - want.points).max()),
+            total_vs_cost_terms_max_abs=float(np.abs(got.costs[:, 0] - ref).max()),
+            ms_per_step=(got_ms - short_ms) / (hcfg.iterations - short.iterations),
+            call_ms=got_ms, unsharded_call_ms=want_ms, card=smi)
+
     if "time" in phases:
-        # 12. time (CUDA events; slope over step or sample counts, minimum of repeats)
+        # 13. time (CUDA events; slope over step or sample counts, minimum of repeats)
         def fused_time(kpk, ksteps, psteps, repeats):
             kt = [events_ms(lambda s=s: F.fused_mh_cuda(kpk, pose0, 0, s), repeats) for s in ksteps]
             pt = [events_ms(lambda s=s: F.fused_chains_reference(kpk, pose0, 0, s), 2)
@@ -1117,7 +1275,7 @@ def main(argv=None) -> int:
         _build.load = default_load
 
     if "profile" in phases:
-        # 13. profile: what the torch engine's step is made of on the card
+        # 14. profile: what the torch engine's step is made of on the card
         for name, kcfg in (("single", cfg), ("block", block_cfg)):
             for graph in (False, True):
                 say("profile", card=smi, objs=100, chains=kcfg.n_chains, path=name,

@@ -4,12 +4,14 @@ The port of ``mh_tpu`` to one NVIDIA Hopper GPU, with the same public
 names for what it has so far: the scene model and its JSON format, the
 seven-term objective in PARITY and FIXED modes, the chain engine on
 ``jax.random``'s threefry stream (``sampler/``: ``run_chains``,
-``compile_chains`` as a CUDA graph, parallel tempering and annealed SMC on
-one device), ``suggest_layouts`` over that engine or the fused MH chain
-kernel (``kernels/csrc/fused_mh.cu``; single or compound moves, one or K
-accept draws), JSONL run logging, the Monte-Carlo pi estimator with its
-CUDA kernel (``kernels/csrc/pi_kernel.cu``), and the ``python -m
-mh_tpu_torch`` command line. Each kernel has a plain PyTorch version that
+``compile_chains`` as a CUDA graph, parallel tempering and annealed SMC),
+``suggest_layouts`` over that engine or the fused MH chain kernel
+(``kernels/csrc/fused_mh.cu``; single or compound moves, one or K accept
+draws), the chains, replicas, particles and object rows split over a mesh
+of devices in one process (``parallel/``), JSONL run logging, the
+Monte-Carlo pi estimator with its CUDA kernel
+(``kernels/csrc/pi_kernel.cu``), and the ``python -m mh_tpu_torch``
+command line. Each kernel has a plain PyTorch version that
 runs on the CPU. It imports neither ``jax`` nor ``mh_tpu``.
 """
 

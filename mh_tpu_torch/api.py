@@ -13,8 +13,13 @@ import numpy as np
 import torch
 
 from mh_tpu_torch.config import SamplerConfig
-from mh_tpu_torch.kernels.fused_mh import kernel_takes, run_chains_fused, tracks_off
+from mh_tpu_torch.kernels.fused_mh import (
+    kernel_takes, run_chains_fused, run_chains_fused_sharded, tracks_off,
+)
 from mh_tpu_torch.models.scene import Scene, SceneSpec
+from mh_tpu_torch.parallel.mesh import CHAINS_AXIS, chain_mesh
+from mh_tpu_torch.parallel.objshard import OBJS_AXIS, chain_obj_mesh, run_chains_objsharded
+from mh_tpu_torch.parallel.sharded import run_chains_sharded
 from mh_tpu_torch.sampler import prng
 from mh_tpu_torch.sampler.mh import (
     ChainStep, chain_starts, compile_chains, run_chains, step_advance,
@@ -70,10 +75,11 @@ def suggest_layouts(
     ``key``: the integer seed (the torch engines key ``prng.key(key)`` as
     ``mh_tpu`` keys ``jax.random.key(key)``; the fused kernel seeds its
     counter-based stream with it).
-    ``device``: where the chains run. Default: a built scene's own device;
-    for a :class:`SceneSpec`, ``"cuda"``, which raises on a host without a
-    CUDA device (the CPU is only ever chosen by name, as ``JAX_PLATFORMS``
-    chooses it for ``mh_tpu``).
+    ``device``: where the chains run. Default: the first device of
+    ``mesh``, else a built scene's own device; for a :class:`SceneSpec`,
+    ``"cuda"``, which raises on a host without a CUDA device (the CPU is
+    only ever chosen by name, as ``JAX_PLATFORMS`` chooses it for
+    ``mh_tpu``).
 
     ``engine``:
 
@@ -88,7 +94,8 @@ def suggest_layouts(
     - ``"auto"``: chosen from the config before anything runs — on the
       CPU ``"torch"``; on CUDA ``"fused"`` wherever the kernel takes the
       config (``accept_draws`` <= 120 and its shared-memory bound), else
-      ``"torch_graph"``.
+      ``"torch_graph"``; with a mesh, ``"fused"`` or ``"torch"``
+      (:func:`auto_engine`).
 
     ``serve`` is accepted for ``mh_tpu``'s signature and changes nothing:
     on the H100 the fused kernel is faster than the CUDA graph at every
@@ -96,11 +103,26 @@ def suggest_layouts(
     steps a call (PERF.md).
 
     ``log``: a file path / file-like / :class:`RunLogger` receiving a JSONL
-    event stream (``run_config`` + ``result``); with ``log_every > 0`` the
-    torch engines run in ``log_every``-step rounds (bitwise equal to one
-    shot) with a ``round`` event after each. ``mesh`` and
-    ``objs_devices`` (multi-GPU) are not ported yet and raise
-    ``NotImplementedError`` (ROADMAP Queue 1.8).
+    event stream (``run_config`` + ``result``); with ``log_every > 0`` and
+    no ``mesh`` the torch engines run in ``log_every``-step rounds (bitwise
+    equal to one shot) with a ``round`` event after each; a sharded run is
+    logged as one shot.
+
+    ``mesh`` (a :class:`~mh_tpu_torch.parallel.mesh.Mesh` with a chains
+    axis, e.g. ``chain_mesh()``): the chains split over its devices, on the
+    fused kernel (one launch per shard, keyed by each shard's first global
+    chain) or the ``torch`` engine (``torch_graph`` raises; so does a
+    per-chain ``pose0`` there). Both are bitwise equal to one shard. With
+    no ``mesh``, a CUDA run on a host with more than one card spans every
+    card where the chains divide among them and ``pose0`` is shared.
+
+    ``objs_devices``: split the O(N^2) objective within each chain into
+    this many row shards (:mod:`mh_tpu_torch.parallel.objshard`, the path
+    past the fused kernel's object limit): over every card where their
+    count is a multiple of it (the chains split over the groups), else all
+    on the run's device; or pass a ``mesh`` that carries the objs axis
+    (``chain_obj_mesh``). It takes the ``torch`` engine and one shared
+    ``pose0``.
     """
     if not isinstance(key, int) or isinstance(key, bool):
         raise TypeError(f"key must be an int seed, got {type(key).__name__}")
@@ -108,13 +130,11 @@ def suggest_layouts(
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r} (use one of {ENGINES} or "
                          f"{tuple(ENGINE_ALIASES)})")
-    if mesh is not None or (objs_devices or 1) > 1:
-        raise NotImplementedError("multi-GPU sampling is not ported yet (ROADMAP Queue 1.8)")
 
     logger = as_logger(log)
     try:
-        res, engine_used = _dispatch_layouts(scene, cfg, key, pose0, engine, logger, log_every,
-                                             device)
+        res, engine_used = _dispatch_layouts(scene, cfg, key, pose0, engine, mesh, objs_devices,
+                                             logger, log_every, device)
         if logger is not None:
             logger.log_result(res, engine=engine_used)
         return res
@@ -123,7 +143,10 @@ def suggest_layouts(
             logger.close()
 
 
-def _dispatch_layouts(scene, cfg, key, pose0, engine, logger, log_every, device):
+def _dispatch_layouts(scene, cfg, key, pose0, engine, mesh, objs_devices, logger, log_every,
+                      device):
+    if device is None and mesh is not None:
+        device = mesh.devices.flat[0]
     if isinstance(scene, SceneSpec):
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -140,17 +163,45 @@ def _dispatch_layouts(scene, cfg, key, pose0, engine, logger, log_every, device)
     device = scene.device if device is None else torch.device(device)
     scene = scene.to(device)
     n_real = int(torch.sum(scene.obj_mask > 0))
+    shared_pose0 = pose0.ndim == 2
 
+    def log_cfg(eng: str) -> None:
+        if logger is not None:
+            logger.log_config(cfg, engine=eng, n_objs=n_real, n_chains=cfg.n_chains)
+
+    # the row-sharded objective: asked for by count, or by a mesh with the objs axis
+    if objs_devices is not None and objs_devices > 1:
+        if mesh is not None:
+            raise ValueError("pass either objs_devices or a 2-D mesh, not both")
+        mesh = _objs_mesh(device, objs_devices)
+    if mesh is not None and mesh.shape.get(OBJS_AXIS, 1) > 1:
+        if engine not in ("auto", "torch"):
+            raise ValueError(f"objs-sharded sampling uses the torch engine (got {engine!r})")
+        if not shared_pose0:
+            raise ValueError("objs-sharded sampling needs one shared pose0 f32[N, 6]")
+        log_cfg("torch_objsharded")
+        states = run_chains_objsharded(prng.key(key, device), pose0, scene, cfg, mesh)
+        return _result_from_state(states, n_real), "torch_objsharded"
+
+    if mesh is None and device.type == "cuda" and torch.cuda.device_count() > 1 and (
+            cfg.n_chains % torch.cuda.device_count() == 0 and shared_pose0
+            and engine in ("auto", "fused", "torch")):
+        mesh = chain_mesh()
     if engine == "auto":
         n_clr = int(torch.sum(scene.clr_mask > 0))
-        engine = auto_engine(device, cfg, scene.n_pad_objs, n_clr, tracks_off(scene, cfg))
-    if logger is not None:
-        logger.log_config(cfg, engine=engine, n_objs=n_real, n_chains=cfg.n_chains)
+        engine = auto_engine(device, cfg, scene.n_pad_objs, n_clr, tracks_off(scene, cfg),
+                             None if mesh is None else len(mesh.axis_devices(CHAINS_AXIS)),
+                             shared_pose0)
+    log_cfg(engine)
 
     if engine == "fused":
-        pose, breakdown, n_acc, scale = run_chains_fused(
-            key, pose0, scene, cfg, cfg.n_chains, cfg.iterations, device=device
-        )
+        if mesh is None:
+            out = run_chains_fused(key, pose0, scene, cfg, cfg.n_chains, cfg.iterations,
+                                   device=device)
+        else:
+            out = run_chains_fused_sharded(key, pose0, scene, cfg, cfg.n_chains,
+                                           cfg.iterations, mesh)
+        pose, breakdown, n_acc, scale = out
         return LayoutResult(
             points=pose[:, :n_real, :].cpu().numpy(),
             costs=breakdown.cpu().numpy(),
@@ -158,26 +209,48 @@ def _dispatch_layouts(scene, cfg, key, pose0, engine, logger, log_every, device)
             step_scale=scale.cpu().numpy(),
         ), engine
 
+    if mesh is not None and engine == "torch_graph":
+        raise ValueError("mesh sharding applies to engine='torch' (xla) only")
+    if mesh is not None and not shared_pose0:
+        raise ValueError("mesh sharding supports one shared pose0 (f32[N, 6]); per-chain "
+                         "starts need the unsharded engine='torch'")
     tkey = prng.key(key, device)
-    if logger is not None and log_every > 0:
+    if mesh is not None:
+        states = run_chains_sharded(tkey, pose0, scene, cfg, mesh)
+    elif logger is not None and log_every > 0:
         states = _run_logged(scene, cfg, tkey, pose0, logger, log_every, engine == "torch_graph")
     elif engine == "torch":
         states, _ = run_chains(tkey, pose0, scene, cfg)
     else:
         states, _ = compile_chains(scene, cfg)(tkey, pose0)
+    return _result_from_state(states, n_real), engine
+
+
+def _objs_mesh(device: torch.device, k: int):
+    """``k`` objs shards: over every card where their count is a multiple
+    of ``k`` (chains split over the groups), else all on ``device``."""
+    if device.type == "cuda" and torch.cuda.device_count() % k == 0:
+        n = torch.cuda.device_count()
+        return chain_obj_mesh(n // k, k)
+    return chain_obj_mesh(1, k, devices=[device] * k)
+
+
+def _result_from_state(states, n_real: int) -> LayoutResult:
     return LayoutResult(
         points=states.pose[:, :n_real, :].cpu().numpy(),
         costs=states.costs.as_vector().cpu().numpy(),
         accept_rate=states.accept_rate.cpu().numpy(),
         step_scale=np.exp(states.log_scale.cpu().numpy()),
-    ), engine
+    )
 
 
 def auto_engine(device, cfg: SamplerConfig, n_pad_objs: int, n_clearances: int,
-                track_off: bool) -> str:
+                track_off: bool, n_shards: int | None = None, shared_pose0: bool = True) -> str:
     """The ``engine="auto"`` decision, a pure function of the run's config
     (``track_off``: FIXED mode with an off-limits weight, ``tracks_off``,
-    whose slab state takes more of the kernel's shared memory).
+    whose slab state takes more of the kernel's shared memory; ``n_shards``:
+    the chains axis of the run's mesh, None without one; ``shared_pose0``:
+    one start pose for every chain).
 
     On the CPU, ``"torch"`` (as ``mh_tpu`` picks its XLA scan off the TPU).
     On CUDA, ``"fused"`` wherever the kernel takes the config, else
@@ -187,12 +260,17 @@ def auto_engine(device, cfg: SamplerConfig, n_pad_objs: int, n_clearances: int,
     objects x 1024 chains (PERF.md), far below a sampling run's length.
     ``mh_tpu``'s crossovers were measured on a TPU and are not carried
     over.
+
+    With a mesh, ``"fused"`` where the kernel takes the config, the shards
+    divide the chains and ``pose0`` is shared, else the sharded ``"torch"``
+    engine (a CUDA graph is not sharded).
     """
     if torch.device(device).type != "cuda":
         return "torch"
-    if kernel_takes(cfg, n_pad_objs, n_clearances, track_off):
-        return "fused"
-    return "torch_graph"
+    takes = kernel_takes(cfg, n_pad_objs, n_clearances, track_off)
+    if n_shards is None:
+        return "fused" if takes else "torch_graph"
+    return "fused" if takes and cfg.n_chains % n_shards == 0 and shared_pose0 else "torch"
 
 
 def _run_logged(scene, cfg, key, pose0, logger, log_every, graph):

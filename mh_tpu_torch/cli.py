@@ -9,11 +9,13 @@ Commands:
   suggest   run MH layout suggestions on a scene (file or built-in demo)
   demo      run + pretty-print the reference demo scene
   pi        Monte-Carlo pi estimate (plain PyTorch; --fused for the CUDA kernel)
-  devices   report the CUDA devices
-  temper    parallel tempering on one device (--adapt-ladder for the
+  devices   report the CUDA devices and the default chain mesh
+  temper    parallel tempering over every card (chain_mesh()), or one
+            shard with --device cpu (--adapt-ladder for the
             swap-rate-adaptive ladder)
-  smc       annealed SMC on one device (--adaptive --init prior for
-            ESS-targeted tempering from the beta=0 prior)
+  smc       annealed SMC over every card, or one shard with --device cpu
+            (--adaptive --init prior for ESS-targeted tempering from the
+            beta=0 prior)
 """
 
 from __future__ import annotations
@@ -151,37 +153,29 @@ def cmd_pi(args) -> int:
     return 0
 
 
-def device_report() -> str:
-    """Human-readable report of the CUDA devices PyTorch sees."""
-    import torch
-
-    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    lines = [
-        f"backend: {'cuda' if n else 'cpu'} (torch {torch.__version__}, CUDA {torch.version.cuda})",
-        f"{n} CUDA devices",
-    ]
-    for i in range(n):
-        lines.append(f"  device {i}: cuda ({torch.cuda.get_device_name(i)})")
-    return "\n".join(lines)
-
-
 def cmd_devices(_args) -> int:
+    from mh_tpu_torch.parallel.mesh import device_report
+
     print(device_report())
     return 0
 
 
 def _scene_on_device(args):
-    """(initial pose, built scene) of --scene or the demo scene on --device."""
+    """(initial pose, built scene, mesh) of --scene or the demo scene on
+    --device; the mesh spans every card for ``cuda`` and is None (one
+    shard on the device) otherwise."""
     import torch
 
     from mh_tpu_torch.models.scene import demo_scene
+    from mh_tpu_torch.parallel.mesh import chain_mesh
     from mh_tpu_torch.utils.serialization import load_scene
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
     spec = load_scene(args.scene) if args.scene else demo_scene(args.objects)
-    return spec.initial_pose(device=device), spec.build(device=device)
+    mesh = chain_mesh() if device == torch.device("cuda") else None
+    return spec.initial_pose(device=device), spec.build(device=device), mesh
 
 
 def _write_log(args, engine: str, n_chains: int, result: dict) -> None:
@@ -198,9 +192,9 @@ def cmd_temper(args) -> int:
     from mh_tpu_torch.sampler import prng
     from mh_tpu_torch.sampler.tempering import run_tempered
 
-    pose0, scene = _scene_on_device(args)
+    pose0, scene, mesh = _scene_on_device(args)
     out = run_tempered(
-        prng.key(args.seed), pose0, scene, _sampler_config(args), None,
+        prng.key(args.seed), pose0, scene, _sampler_config(args), mesh,
         n_replicas=args.replicas, exchange_every=args.exchange_every, rounds=args.rounds,
         adapt_ladder=args.adapt_ladder,
     )
@@ -220,9 +214,9 @@ def cmd_smc(args) -> int:
     from mh_tpu_torch.sampler import prng
     from mh_tpu_torch.sampler.smc import run_smc
 
-    pose0, scene = _scene_on_device(args)
+    pose0, scene, mesh = _scene_on_device(args)
     states, diag = run_smc(
-        prng.key(args.seed), pose0, scene, _sampler_config(args), None,
+        prng.key(args.seed), pose0, scene, _sampler_config(args), mesh,
         n_particles=args.particles, n_stages=args.stages, mutate_steps=args.mutate_steps,
         adaptive=args.adaptive, init=args.init,
     )
@@ -261,8 +255,9 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--objs-devices", type=int, default=None,
-        help="shard the O(N^2) objective within each chain over this many "
-             "devices (not ported yet: ROADMAP Queue 1.8)",
+        help="split the O(N^2) objective within each chain into this many row "
+             "shards (over the cards where their count is a multiple of it, else "
+             "on --device; the torch engine)",
     )
     _add_sampler_flags(p)
     p.set_defaults(fn=cmd_suggest)
@@ -282,7 +277,7 @@ def main(argv=None) -> int:
     p = sub.add_parser("devices", help="device report")
     p.set_defaults(fn=cmd_devices)
 
-    p = sub.add_parser("temper", help="parallel tempering on one device")
+    p = sub.add_parser("temper", help="parallel tempering over the chain mesh")
     p.add_argument("--scene", help="scene JSON (default: built-in demo scene)")
     p.add_argument("--objects", type=int, default=32)
     p.add_argument("--replicas", type=int, default=16)
@@ -293,7 +288,7 @@ def main(argv=None) -> int:
     _add_sampler_flags(p)
     p.set_defaults(fn=cmd_temper)
 
-    p = sub.add_parser("smc", help="annealed SMC on one device")
+    p = sub.add_parser("smc", help="annealed SMC over the chain mesh")
     p.add_argument("--scene", help="scene JSON (default: built-in demo scene)")
     p.add_argument("--objects", type=int, default=32)
     p.add_argument("--particles", type=int, default=64)

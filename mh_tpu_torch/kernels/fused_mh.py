@@ -10,6 +10,9 @@ weighted breakdown of each final pose:
 - on CPU tensors it runs :func:`fused_chains_reference`, the plain
   PyTorch version of the same algorithm, batched over chains.
 
+:func:`run_chains_fused_sharded` (``mh_tpu``'s section i) runs it once per
+shard of a mesh, each launch keyed by its shard's first global chain.
+
 Both follow the JAX kernel's semantics: the same counter-based random
 stream keyed by (seed, global chain, draw counter, lane) in the same draw
 layout, the same proposal (one move, or ``n_moves_per_step`` sequential
@@ -57,6 +60,7 @@ from mh_tpu_torch.kernels.counter_rng import M32, counter_bits
 from mh_tpu_torch.models.scene import Scene
 from mh_tpu_torch.ops import geometry as geo
 from mh_tpu_torch.ops.costs import floor_mod
+from mh_tpu_torch.parallel.mesh import CHAINS_AXIS, concat, local_count, split_rows
 
 Tensor = torch.Tensor
 
@@ -796,8 +800,9 @@ def fused_mh_cuda(pk: PackedScene, pose0: Tensor, seed: int, iterations: int,
     if smem > MAX_SMEM:
         raise ValueError(f"{n} objects x {pk.n_clr} clearances need {smem} B of shared "
                          f"memory per block; the limit is {MAX_SMEM}")
-    if not 0 <= iterations < 2**31 or n_chains >= 2**31:
-        raise ValueError(f"iterations={iterations} / n_chains={n_chains} out of range")
+    if not 0 <= iterations < 2**31 or not 0 <= first_chain < 2**31 - n_chains:
+        raise ValueError(f"iterations={iterations} / chains {first_chain} + {n_chains} "
+                         "out of range")
     lib = _build.load()
     pose_in = pose0.contiguous()
     pose_out = torch.empty_like(pose_in)
@@ -807,15 +812,18 @@ def fused_mh_cuda(pk: PackedScene, pose0: Tensor, seed: int, iterations: int,
     for a in args:
         if not a.is_contiguous():
             raise ValueError("fused kernel inputs must be contiguous")
-    err = lib.mh_fused_run(
-        *[ctypes.c_void_p(a.data_ptr()) for a in args],
-        pk.rel_idx.shape[0], pk.ang_idx.shape[0], pk.n_clr, n, n_chains,
-        ctypes.c_uint32(seed & M32), iterations, first_chain,
-        int(pk.parity), int(pk.track_off), int(pk.adapt), pk.moves, pk.accept_draws,
-        int(sym_incremental(pk.moves, n)), off_slab_width(n),
-        int(pk.track_off and off_incremental(pk.moves, n, pk.n_clr)),
-        ctypes.c_void_p(torch.cuda.current_stream(pose0.device).cuda_stream),
-    )
+    # the C entry point launches into the current device's context: make it
+    # the tensors' device, whose stream it is handed
+    with torch.cuda.device(pose0.device):
+        err = lib.mh_fused_run(
+            *[ctypes.c_void_p(a.data_ptr()) for a in args],
+            pk.rel_idx.shape[0], pk.ang_idx.shape[0], pk.n_clr, n, n_chains,
+            ctypes.c_uint32(seed & M32), iterations, first_chain,
+            int(pk.parity), int(pk.track_off), int(pk.adapt), pk.moves, pk.accept_draws,
+            int(sym_incremental(pk.moves, n)), off_slab_width(n),
+            int(pk.track_off and off_incremental(pk.moves, n, pk.n_clr)),
+            ctypes.c_void_p(torch.cuda.current_stream(pose0.device).cuda_stream),
+        )
     fused_mh_cuda.launches += 1
     if err:
         raise RuntimeError(f"fused_mh kernel launch failed: {_build.error_string(err)}")
@@ -837,11 +845,12 @@ def uniform_block_cuda(seed: int, counter: int, first_chain: int, n_chains: int,
     """:func:`uniform_block` drawn by the kernel's own device function."""
     lib = _build.load()
     out = torch.empty(n_chains, DRAW_LANES, dtype=torch.float32, device=device)
-    err = lib.mh_uniform_block(
-        ctypes.c_void_p(out.data_ptr()), ctypes.c_uint32(seed & M32),
-        ctypes.c_uint32(counter & M32), first_chain, n_chains,
-        ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream),
-    )
+    with torch.cuda.device(out.device):
+        err = lib.mh_uniform_block(
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_uint32(seed & M32),
+            ctypes.c_uint32(counter & M32), first_chain, n_chains,
+            ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream),
+        )
     if err:
         raise RuntimeError(f"uniform_block launch failed: {_build.error_string(err)}")
     return out
@@ -866,14 +875,55 @@ def run_chains_fused(
     n_accept i32[n_chains], step_scale f32[n_chains])``.
     """
     device = torch.device(device) if device is not None else pose0.device
-    scene = scene.to(device)
+    pk = pack_scene(scene.to(device), cfg)
+    return _run(pk, _chain_poses(pose0, n_chains, device), seed, iterations, 0)
+
+
+def _chain_poses(pose0: Tensor, n_chains: int, device) -> Tensor:
+    """f32[n_chains, N, 6] on ``device`` from a shared f32[N, 6] or a
+    per-chain start."""
     pose0 = pose0.to(device=device, dtype=torch.float32)
-    if pose0.ndim == 2:
-        pose0 = pose0.expand(n_chains, *pose0.shape)
+    return pose0.expand(n_chains, *pose0.shape) if pose0.ndim == 2 else pose0
+
+
+def _run(pk: PackedScene, pose0: Tensor, seed: int, iterations: int, first_chain: int):
+    """Chains ``first_chain ..`` of ``pose0`` on the packed scene's device:
+    the CUDA kernel there, or on the CPU its plain version."""
+    device = pk.planes.device
     pose0 = pose0.contiguous()
-    pk = pack_scene(scene, cfg)
     if device.type == "cuda":
-        return fused_mh_cuda(pk, pose0, seed, iterations)
+        return fused_mh_cuda(pk, pose0, seed, iterations, first_chain)
     if device.type == "cpu":
-        return fused_chains_reference(pk, pose0, seed, iterations)
+        return fused_chains_reference(pk, pose0, seed, iterations, first_chain)
     raise ValueError(f"unsupported device {device}")
+
+
+def run_chains_fused_sharded(
+    seed: int,
+    pose0: Tensor,
+    scene: Scene,
+    cfg: SamplerConfig,
+    n_chains: int,
+    iterations: int,
+    mesh,
+):
+    """The fused kernel once per shard of ``mesh``'s chains axis.
+
+    The scene is packed once on each distinct device; shard ``d`` runs
+    chains ``d n_local .. (d + 1) n_local - 1`` with its first global chain
+    index, which keys the kernel's counter-based stream, so the result is
+    bitwise that of one launch on any number of shards. Every shard is
+    launched before any result is read; the outputs are joined, chains in
+    shard order, on the first shard's device. Same returns as
+    :func:`run_chains_fused`.
+    """
+    devices = mesh.axis_devices(CHAINS_AXIS)
+    n_local = local_count(n_chains, len(devices), "n_chains")
+    packs = {}
+    for d in devices:
+        if d not in packs:
+            packs[d] = pack_scene(scene.to(d), cfg)
+    poses = split_rows(_chain_poses(pose0, n_chains, devices[0]), devices)
+    outs = [_run(packs[d], p, seed, iterations, i * n_local)
+            for i, (d, p) in enumerate(zip(devices, poses))]
+    return tuple(concat(list(parts)) for parts in zip(*outs))

@@ -69,10 +69,11 @@ def pi_hits_cuda(seed: int, total: int, device="cuda") -> int:
     n_blocks = torch.cuda.get_device_properties(device).multi_processor_count * BLOCKS_PER_SM
     lib = _build.load()
     partial = torch.empty(n_blocks, dtype=torch.int64, device=device)
-    err = lib.mh_pi_hits(
-        ctypes.c_void_p(partial.data_ptr()), n_blocks, ctypes.c_uint32(seed & M32), total,
-        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
-    )
+    with torch.cuda.device(partial.device):  # the entry point launches on the current device
+        err = lib.mh_pi_hits(
+            ctypes.c_void_p(partial.data_ptr()), n_blocks, ctypes.c_uint32(seed & M32), total,
+            ctypes.c_void_p(torch.cuda.current_stream(partial.device).cuda_stream),
+        )
     pi_hits_cuda.launches += 1
     if err:
         raise RuntimeError(f"pi kernel launch failed: {_build.error_string(err)}")

@@ -21,10 +21,26 @@ def distance(xi, yi, xj, yj) -> Tensor:
     return torch.sqrt(dx * dx + dy * dy)
 
 
+def atan2(y: Tensor, x: Tensor) -> Tensor:
+    """``torch.atan2`` with one rounding for every element.
+
+    PyTorch's CPU kernel takes SLEEF's vectorised atan2 for the elements
+    of whole vectors of a contiguous input and the C library's for the
+    rest, which differ by an ulp; an element's bits then depend on where
+    it falls in the tensor, so on the batch size, and chains would part
+    between shard counts. Strided inputs take the C library's for every
+    element. On CUDA every element takes one path already.
+    """
+    if y.device.type != "cpu":
+        return torch.atan2(y, x)
+    pair = torch.stack(torch.broadcast_tensors(y, x), -1)
+    return torch.atan2(pair[..., 0], pair[..., 1])
+
+
 def theta(xi, yi, xj, yj, ti, pi: float) -> Tensor:
     """Bearing of i seen from j, re-oriented by ``ti``, in [0, 2*pi)
     (``Kernel.cu:170-182``); ``pi`` is the mode's PI constant."""
-    t = torch.atan2(yi - yj, xi - xj)
+    t = atan2(yi - yj, xi - xj)
     t = torch.where(t < 0, 2 * pi + t, t)
     t = t - ti
     return torch.where(t < 0, 2 * pi + t, t)
@@ -32,7 +48,7 @@ def theta(xi, yi, xj, yj, ti, pi: float) -> Tensor:
 
 def phi(xi, yi, xj, yj, tj, pi: float) -> Tensor:
     """Facing angle of object j toward point i (``Kernel.cu:185-188``)."""
-    return torch.atan2(yi - yj, xi - xj) - tj + pi / 2.0
+    return atan2(yi - yj, xi - xj) - tj + pi / 2.0
 
 
 def intersection_area(a_min_x, a_min_y, a_max_x, a_max_y,

@@ -3,8 +3,8 @@
 - :mod:`mh_tpu_torch.sampler.prng` — ``jax.random``'s threefry stream
 - :mod:`mh_tpu_torch.sampler.proposal` — translate/rotate/swap block proposals
 - :mod:`mh_tpu_torch.sampler.mh` — the chain engine (chains as a leading dim)
-- :mod:`mh_tpu_torch.sampler.tempering` — parallel tempering on one device
-- :mod:`mh_tpu_torch.sampler.smc` — annealed SMC on one device
+- :mod:`mh_tpu_torch.sampler.tempering` — parallel tempering over a device mesh
+- :mod:`mh_tpu_torch.sampler.smc` — annealed SMC over a device mesh
 """
 
 from mh_tpu_torch.sampler.mh import (

@@ -125,10 +125,11 @@ class ChainStep:
     def costs(self, pose: Tensor) -> CostBreakdown:
         return weighted_terms(pose, self.scene, self.cfg.mode, self.with_off)
 
-    def init(self, pose: Tensor, key: Tensor) -> MHState:
+    def init(self, pose: Tensor, key: Tensor, cost_fn=None) -> MHState:
         lead = pose.shape[:-2]
         dev = pose.device
-        return MHState(pose=pose, costs=self.costs(pose), key=key,
+        costs = self.costs(pose) if cost_fn is None else cost_fn(pose)
+        return MHState(pose=pose, costs=costs, key=key,
                        step=torch.zeros(lead, dtype=torch.int32, device=dev),
                        n_accept=torch.zeros(lead, dtype=torch.int32, device=dev),
                        log_scale=torch.zeros(lead, dtype=torch.float32, device=dev))
@@ -205,15 +206,18 @@ def _validate_thin(thin: int, iterations: int) -> None:
         raise ValueError(f"thin={thin} must be >= 1 and divide iterations={iterations}")
 
 
-def chain_starts(key: Tensor, pose0: Tensor, scene: Scene, n_chains: int):
-    """(poses f32[C, N, 6], per-chain keys i64[C, 2]) on the scene's device:
-    chain ``c`` is keyed by ``fold_in(key, c)``; a shared ``pose0`` f32[N, 6]
-    starts every chain."""
+def chain_starts(key: Tensor, pose0: Tensor, scene: Scene, n_chains: int, first: int = 0):
+    """(poses f32[C, N, 6], per-chain keys i64[C, 2]) of the chains ``first
+    .. first + C - 1`` on the scene's device: chain ``c`` is keyed by
+    ``fold_in(key, c)``, its global index; a shared ``pose0`` f32[N, 6]
+    starts every chain, a per-chain one f32[n, N, 6] chain ``c`` at row c."""
     dev = scene.device
-    keys = prng.fold_in(key.to(dev), torch.arange(n_chains, device=dev))
+    keys = prng.fold_in(key.to(dev), torch.arange(first, first + n_chains, device=dev))
     pose0 = pose0.to(device=dev, dtype=torch.float32)
     if pose0.ndim == 2:
         pose0 = pose0.expand(n_chains, *pose0.shape)
+    else:
+        pose0 = pose0[first:first + n_chains]
     return pose0.contiguous(), keys
 
 

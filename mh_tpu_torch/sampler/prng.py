@@ -106,6 +106,13 @@ def f32(v: float) -> float:
     return float(np.float32(v))
 
 
+def reciprocal(n: int) -> float:
+    """``1 / n`` in float32. XLA turns a division by a constant into a
+    multiply by its float32 reciprocal, and so does PyTorch on CUDA for a
+    host scalar; the port multiplies by it explicitly on both devices."""
+    return float(np.float32(1.0) / np.float32(n))
+
+
 def uniform(k: Tensor, shape: tuple[int, ...] = (), minval=0.0, maxval=1.0) -> Tensor:
     """``jax.random.uniform(k, shape, float32, minval, maxval)``: ``[..., *shape]``.
 

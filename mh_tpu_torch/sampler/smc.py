@@ -1,4 +1,4 @@
-"""Annealed Sequential Monte Carlo on one device (counterpart of ``mh_tpu.sampler.smc``).
+"""Annealed Sequential Monte Carlo over a device mesh (counterpart of ``mh_tpu.sampler.smc``).
 
 Particles anneal from beta=0 to the target beta: each stage reweights by
 ``exp(dbeta * S)``, renormalises (folding the normaliser into the
@@ -6,15 +6,21 @@ log-evidence), resamples systematically when the effective sample size
 drops below ``ess_threshold * n_particles``, and mutates with MH steps at
 the new temperature.
 
-``mh_tpu`` shards the particles over a mesh, normalises with ``psum`` and
-gathers the ensemble with ``all_gather`` to resample; on one device those
-are local sums and plain indexing. Its ``lax.cond`` on the resample
-decision becomes a selection (``torch.where``) between the resampled and
-the kept ensemble, so no stage reads a value back to the host. Keys follow
-``mh_tpu``: particle ``i`` is ``fold_in(key, i)``, the stage-``t``
-resample key ``fold_in(fold_in(key, 0x5C), t)``, the prior draws
-``split(fold_in(fold_in(key, 0x9A1), i), 3)``. Multi-GPU SMC is ROADMAP
-Queue 1.8.
+As in ``mh_tpu`` the particles are split over the mesh's chains axis: the
+weights' maximum and sums go through
+:func:`~mh_tpu_torch.parallel.mesh.pmax` / :func:`~mh_tpu_torch.parallel.mesh.psum`,
+and a resample gathers every shard's poses, cost vectors and log-weights
+(:func:`~mh_tpu_torch.parallel.mesh.all_gather`) and gives each shard its
+slice of the global systematic indices. ``mh_tpu``'s ``lax.cond`` on the
+resample decision becomes a selection (``torch.where``) between the
+resampled and the kept ensemble, so no stage reads a value back to the
+host. Every shard draws the global resample indices from the gathered
+weights, as in ``mh_tpu``; the scalar state (schedule, evidence) is kept
+once, on the first shard's device. Keys follow ``mh_tpu``: particle ``i``
+is ``fold_in(key, i)`` by global id, the stage-``t`` resample key
+``fold_in(fold_in(key, 0x5C), t)``, the prior draws
+``split(fold_in(fold_in(key, 0x9A1), i), 3)``. ``mesh=None`` is one shard
+on the scene's device.
 """
 
 from __future__ import annotations
@@ -24,18 +30,13 @@ import torch
 
 from mh_tpu_torch.config import SamplerConfig
 from mh_tpu_torch.models.scene import Scene
+from mh_tpu_torch.parallel.mesh import Mesh, all_gather, local_count, pmax, psum
+from mh_tpu_torch.parallel.sharded import advance, concat, concat_states, shard_steps
 from mh_tpu_torch.sampler import prng
-from mh_tpu_torch.sampler.mh import ChainStep, chain_starts
-from mh_tpu_torch.sampler.tempering import check_one_device, with_rows
+from mh_tpu_torch.sampler.mh import chain_starts
+from mh_tpu_torch.sampler.tempering import chain_devices, with_rows
 
 Tensor = torch.Tensor
-
-
-def _reciprocal(n: int) -> float:
-    """``1 / n`` in float32. XLA turns a division by a constant into a
-    multiply by its float32 reciprocal, and so does PyTorch on CUDA for a
-    host scalar; the port multiplies by it explicitly on both devices."""
-    return float(np.float32(1.0) / np.float32(n))
 
 
 def _schedule(beta: float, n_stages: int, device) -> Tensor:
@@ -43,7 +44,7 @@ def _schedule(beta: float, n_stages: int, device) -> Tensor:
     ``start * (1 - s) + stop * s`` with ``s = i * (1 / n_stages)``, the last
     entry exactly ``stop``."""
     stop = np.float32(beta)
-    s = np.arange(n_stages, dtype=np.float32) * np.float32(_reciprocal(n_stages))
+    s = np.arange(n_stages, dtype=np.float32) * np.float32(prng.reciprocal(n_stages))
     out = np.float32(0.0) * (np.float32(1.0) - s) + stop * s
     return torch.as_tensor(np.append(out, stop).astype(np.float32), device=device)
 
@@ -56,9 +57,25 @@ def systematic_resample_indices(key: Tensor, log_w: Tensor, n: int) -> Tensor:
     """
     cdf = torch.cumsum(torch.softmax(log_w, 0), 0)
     u0 = prng.uniform(key, (), 0.0, 1.0 / n)
-    steps = torch.arange(n, dtype=torch.float32, device=log_w.device) * _reciprocal(n)
+    steps = torch.arange(n, dtype=torch.float32, device=log_w.device) * prng.reciprocal(n)
     idx = torch.searchsorted(cdf, u0 + steps, side="left")
     return torch.clamp_max(idx, n - 1)
+
+
+def _prior_starts(key, p0, scene, cfg, gids):
+    """x, y uniform over the surface and rotY over [0, 2 pi) for the
+    movable objects of particles ``gids``, keyed by global id."""
+    mnx, mny, mxx, mxy = scene.surface_bounds()
+    movable = scene.obj_mask * (1.0 - scene.frozen.to(torch.float32))
+    sub = prng.split(prng.fold_in(prng.fold_in(key.to(scene.device), 0x9A1), gids), 3)
+    n_objs = p0.shape[1]
+    draws = (prng.uniform(sub[:, 0], (n_objs,), mnx, mxx),
+             prng.uniform(sub[:, 1], (n_objs,), mny, mxy),
+             prng.uniform(sub[:, 2], (n_objs,), 0.0, 2.0 * cfg.mode.pi))
+    p0 = p0.clone()
+    for col, d in zip((0, 1, 4), draws):
+        p0[:, :, col] = p0[:, :, col] + movable * (d - p0[:, :, col])
+    return p0
 
 
 def run_smc(
@@ -66,7 +83,7 @@ def run_smc(
     pose0: Tensor,
     scene: Scene,
     cfg: SamplerConfig,
-    mesh=None,
+    mesh: Mesh | None = None,
     n_particles: int = 64,
     n_stages: int = 10,
     mutate_steps: int = 5,
@@ -75,12 +92,14 @@ def run_smc(
     target_ess: float = 0.5,
     init: str = "pose0",
 ):
-    """Annealed SMC from beta=0 to ``cfg.beta`` on the scene's device.
+    """Annealed SMC from beta=0 to ``cfg.beta`` over ``mesh``.
 
     Returns ``(states [n_particles, ...], diagnostics)``: a dict of per-stage
     ``ess`` (f32[n_stages]), ``resampled`` (bool[n_stages]) and ``betas``
     (f32[n_stages], the post-stage inverse temperature), the final
-    ``log_weights`` and the ``log_evidence`` estimate.
+    ``log_weights`` and the ``log_evidence`` estimate, on the first shard's
+    device. Poses are bitwise the same on any number of shards; the sums in
+    shard order move ESS and evidence by float rounding only.
 
     ``adaptive``: each increment is bisected (26 halvings) so the
     post-increment ESS lands at ``target_ess * n_particles``; ``n_stages``
@@ -91,51 +110,53 @@ def run_smc(
     """
     if init not in ("pose0", "prior"):
         raise ValueError(f"init={init!r} (use 'pose0' or 'prior')")
-    check_one_device(mesh)
-    dev = scene.device
+    devices = chain_devices(mesh, scene)
     n = n_particles
-    key = key.to(dev)
-    beta_sched = _schedule(cfg.beta, n_stages, dev)
-    step = ChainStep(scene, cfg)
-    p0, keys = chain_starts(key, pose0, scene, n)
-    if init == "prior":
-        mnx, mny, mxx, mxy = scene.surface_bounds()
-        movable = scene.obj_mask * (1.0 - scene.frozen.to(torch.float32))
-        sub = prng.split(prng.fold_in(prng.fold_in(key, 0x9A1), torch.arange(n, device=dev)), 3)
-        n_objs = p0.shape[1]
-        draws = (prng.uniform(sub[:, 0], (n_objs,), mnx, mxx),
-                 prng.uniform(sub[:, 1], (n_objs,), mny, mxy),
-                 prng.uniform(sub[:, 2], (n_objs,), 0.0, 2.0 * cfg.mode.pi))
-        p0 = p0.clone()
-        for col, d in zip((0, 1, 4), draws):
-            p0[:, :, col] = p0[:, :, col] + movable * (d - p0[:, :, col])
-    states = step.init(p0, keys)
+    n_local = local_count(n, len(devices), "n_particles")
+    home = devices[0]
+    beta_sched = _schedule(cfg.beta, n_stages, home)
+    steps = shard_steps(scene, cfg, devices)
+    states = []
+    for d, st in enumerate(steps):
+        p0, keys = chain_starts(key, pose0, st.scene, n_local, d * n_local)
+        if init == "prior":
+            gids = torch.arange(d * n_local, (d + 1) * n_local, device=devices[d])
+            p0 = _prior_starts(key, p0, st.scene, cfg, gids)
+        states.append(st.init(p0, keys))
 
-    zero = torch.zeros((), device=dev)
-    log_w = torch.zeros(n, device=dev)
+    zero = torch.zeros((), device=home)
+    log_w = [torch.zeros(n_local, device=d) for d in devices]
     log_z = zero
     beta_cur = zero
-    k_rs = prng.fold_in(key, 0x5C)
+    k_rs = [prng.fold_in(key.to(d), 0x5C) for d in devices]
 
     def global_ess(log_w):
-        m = torch.amax(log_w)
-        shifted = torch.exp(log_w - m)
-        z1 = torch.sum(shifted)
-        z2 = torch.sum(torch.square(shifted))
-        return torch.square(z1) / torch.clamp_min(z2, 1e-30), m, z1
+        m = pmax([torch.amax(lw) for lw in log_w])
+        shifted = [torch.exp(lw - mm) for lw, mm in zip(log_w, m)]
+        z1 = psum([torch.sum(s) for s in shifted])[0]
+        z2 = psum([torch.sum(torch.square(s)) for s in shifted])[0]
+        return torch.square(z1) / torch.clamp_min(z2, 1e-30), m[0], z1
+
+    def on_shards(v):
+        return [v.to(d) for d in devices]
 
     ess_t, need_t, beta_t = [], [], []
     for t in range(n_stages):
-        scores = states.costs.total
+        scores = [s.costs.total for s in states]
         if adaptive:
             # bisect the largest increment keeping ESS >= target
             remaining = torch.clamp_min(cfg.beta - beta_cur, 0.0)
             target = target_ess * n
-            full_ok = global_ess(log_w + remaining * scores)[0] >= target
+
+            def ess_of(db):
+                return global_ess([lw + b * sc
+                                   for lw, b, sc in zip(log_w, on_shards(db), scores)])[0]
+
+            full_ok = ess_of(remaining) >= target
             lo, hi = zero, remaining
             for _ in range(26):
                 mid = 0.5 * (lo + hi)
-                ok = global_ess(log_w + mid * scores)[0] >= target
+                ok = ess_of(mid) >= target
                 lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
             dbeta = torch.where(full_ok, remaining, lo)
             beta_next = beta_cur + dbeta
@@ -144,37 +165,42 @@ def run_smc(
             beta_next = beta_sched[t + 1]
 
         # reweight, normalise, fold the stage normaliser into the evidence
-        log_w = log_w + dbeta * scores
+        log_w = [lw + b * sc for lw, b, sc in zip(log_w, on_shards(dbeta), scores)]
         ess, m, z1 = global_ess(log_w)
-        stage_log_norm = m + torch.log(z1 * _reciprocal(n))
+        stage_log_norm = m + torch.log(z1 * prng.reciprocal(n))
         log_z = log_z + stage_log_norm
-        log_w = log_w - stage_log_norm
+        log_w = [lw - s for lw, s in zip(log_w, on_shards(stage_log_norm))]
 
         # resample when the ESS collapses; adaptive tempering also after
         # every partial (ESS-limited) increment, or the schedule stalls
         need = ess < ess_threshold * n
         if adaptive:
             need = need | ~full_ok
-        idx = systematic_resample_indices(prng.fold_in(k_rs, t), log_w, n)
-        states = with_rows(states, idx, need.expand(n))
-        log_w = torch.where(need, zero, log_w)
+        gathered = zip(all_gather([s.pose for s in states]),
+                       all_gather([s.costs.as_vector() for s in states]), all_gather(log_w))
+        for d, (pose_all, cvec_all, lw_all) in enumerate(gathered):
+            idx = systematic_resample_indices(prng.fold_in(k_rs[d], t), lw_all, n)
+            mine = idx[d * n_local:(d + 1) * n_local]
+            need_d = need.to(devices[d])
+            states[d] = with_rows(states[d], (pose_all[mine], cvec_all[mine]),
+                                  need_d.expand(n_local))
+            log_w[d] = torch.where(need_d, 0.0, log_w[d])
 
         # mutate: MH steps at the new inverse temperature
-        for _ in range(mutate_steps):
-            states = step(states, beta=beta_next)
+        states = advance(steps, states, mutate_steps, betas=on_shards(beta_next))
         beta_cur = beta_next
         ess_t.append(ess)
         need_t.append(need)
         beta_t.append(beta_next)
 
     def stack(xs, dtype):
-        return torch.stack(xs) if xs else torch.zeros(0, dtype=dtype, device=dev)
+        return torch.stack(xs) if xs else torch.zeros(0, dtype=dtype, device=home)
 
     diagnostics = {
-        "log_weights": log_w,
+        "log_weights": concat(log_w),
         "log_evidence": log_z,
         "ess": stack(ess_t, torch.float32),
         "resampled": stack(need_t, torch.bool),
         "betas": stack(beta_t, torch.float32),
     }
-    return step.finalize(states), diagnostics
+    return concat_states([st.finalize(s) for st, s in zip(steps, states)]), diagnostics

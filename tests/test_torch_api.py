@@ -21,6 +21,7 @@ import mh_tpu
 import mh_tpu_torch
 from mh_tpu_torch.api import LayoutResult, auto_engine
 from mh_tpu_torch.kernels import fused_mh as TF
+from mh_tpu_torch.parallel.mesh import chain_mesh
 from mh_tpu_torch.utils.runlog import RunLogger
 
 # tests/test_torch_fused.py states these and why a few chains may part
@@ -136,19 +137,63 @@ def test_built_scene_with_pose0():
         (dict(key=np.int64(3)), TypeError),
         (dict(key=torch.tensor(3)), TypeError),
         (dict(key=True), TypeError),
-        (dict(engine="xla", mesh=object()), NotImplementedError),
-        (dict(engine="xla_specialized", objs_devices=2), NotImplementedError),
+        (dict(engine="xla_specialized", mesh=chain_mesh(devices=["cpu"] * 2)), ValueError),
+        (dict(engine="xla_specialized", objs_devices=2), ValueError),
         (dict(engine="bogus"), ValueError),
-        (dict(mesh=object()), NotImplementedError),
-        (dict(objs_devices=2), NotImplementedError),
-        (dict(log="run.jsonl", engine="torch", mesh=object()), NotImplementedError),
+        (dict(mesh=chain_mesh(devices=["cpu"] * 3)), ValueError),
+        (dict(objs_devices=3), ValueError),
+        (dict(objs_devices=2, mesh=chain_mesh(devices=["cpu"] * 2)), ValueError),
     ],
 )
 def test_unsupported_arguments_raise(kwargs, error):
+    """Non-int keys; engines or meshes mh_tpu refuses too: a CUDA graph
+    with a mesh, the row-sharded objective off the torch engine, chains or
+    objects the shards do not divide (4 chains over 3 shards; 4 objects
+    over 3), objs_devices with a mesh."""
     with pytest.raises(error):
         mh_tpu_torch.suggest_layouts(
             mh_tpu_torch.demo_scene(4), mh_tpu_torch.SamplerConfig(iterations=1),
             device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,engine", [
+    (dict(engine="xla", mesh=chain_mesh(devices=["cpu"] * 2)), "torch"),
+    (dict(mesh=chain_mesh(devices=["cpu"] * 4)), "torch"),
+    (dict(engine="fused", mesh=chain_mesh(devices=["cpu"] * 2)), "fused"),
+    (dict(objs_devices=2), "torch_objsharded"),
+    (dict(engine="torch", mesh=chain_mesh(devices=["cpu"] * 2), log_every=1), "torch"),
+], ids=["xla_mesh", "auto_mesh", "fused_mesh", "objs_devices", "logged_mesh"])
+def test_mesh_arguments_run(kwargs, engine):
+    """mesh= and objs_devices= run on a CPU mesh and give the unsharded
+    result: bitwise on the chains axis, poses within 1e-4 and equal accepts
+    with the objective row-sharded; a sharded run logs one shot."""
+    spec = mh_tpu_torch.demo_scene(4)
+    cfg = mh_tpu_torch.SamplerConfig(iterations=6, n_chains=4)
+    log = io.StringIO()
+    got = mh_tpu_torch.suggest_layouts(spec, cfg, key=1, log=log, device="cpu", **kwargs)
+    want = mh_tpu_torch.suggest_layouts(spec, cfg, key=1, device="cpu",
+                                        engine="fused" if engine == "fused" else "torch")
+    events = _events(log.getvalue())
+    assert [e["event"] for e in events] == ["run_config", "result"]
+    assert events[0]["engine"] == events[1]["engine"] == engine
+    np.testing.assert_array_equal(got.accept_rate, want.accept_rate)
+    if engine == "torch_objsharded":
+        np.testing.assert_allclose(got.points, want.points, atol=1e-4)
+    else:
+        for field in ("points", "costs", "step_scale"):
+            np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+
+
+def test_auto_engine_with_a_mesh():
+    """With a mesh, auto takes the fused kernel where it takes the config,
+    the shards divide the chains and pose0 is shared, else the sharded
+    torch engine (never the unsharded CUDA graph)."""
+    cfg = mh_tpu_torch.SamplerConfig(n_chains=1024)
+    assert auto_engine("cuda", cfg, 100, 2, False, 4, True) == "fused"
+    assert auto_engine("cuda", cfg, 100, 2, False, 3, True) == "torch"
+    assert auto_engine("cuda", cfg, 100, 2, False, 4, False) == "torch"
+    assert auto_engine("cuda", cfg, 2600, 2, False, 4, True) == "torch"
+    assert auto_engine("cpu", cfg, 100, 2, False, 4, True) == "torch"
 
 
 def test_runs_with_jax_unimportable():
@@ -177,6 +222,10 @@ def test_runs_with_jax_unimportable():
         assert cli.main(["pi", "--fused", "--samples", "4096", "--device", "cpu"]) == 0
         assert cli.main(["smc", "--objects", "6", "--particles", "4", "--stages", "2",
                          "--device", "cpu"]) == 0
+        from mh_tpu_torch.parallel.mesh import chain_mesh
+        for kw in (dict(mesh=chain_mesh(devices=["cpu"] * 2)), dict(objs_devices=2)):
+            res = mh_tpu_torch.suggest_layouts(mh_tpu_torch.demo_scene(8), cfg, device="cpu", **kw)
+            assert res.costs.shape == (2, 8)
         assert not any(m == "jax" or m.startswith(("jax.", "jaxlib", "mh_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

@@ -126,21 +126,31 @@ def test_cli_suggest_defaults_to_cuda(monkeypatch):
         cli.main(["suggest", "--objects", "4", "--iters", "1"])
 
 
-@pytest.mark.parametrize("argv", [
-    ["suggest", "--objects", "4", "--iters", "1", "--device", "cpu", "--engine", "torch",
-     "--objs-devices", "2"],
-    ["suggest", "--objects", "4", "--iters", "1", "--device", "cpu", "--engine",
-     "torch_graph", "--objs-devices", "2"],
-    ["suggest", "--objects", "4", "--iters", "1", "--device", "cpu", "--engine", "xla",
-     "--objs-devices", "2"],
-    ["suggest", "--objects", "4", "--iters", "1", "--device", "cpu", "--objs-devices", "2"],
-    ["suggest", "--objects", "4", "--iters", "1", "--device", "cpu", "--log", "run.jsonl",
-     "--objs-devices", "2"],
-])
-def test_cli_unported_paths_raise(argv):
-    """Multi-GPU sampling is the one path of the CLI not ported yet."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(argv)
+@pytest.mark.parametrize("extra", [
+    ["--engine", "torch"], ["--engine", "torch_graph"], ["--engine", "xla"], [], ["--log", "LOG"],
+], ids=["torch", "torch_graph", "xla", "auto", "logged"])
+def test_cli_objs_devices(extra, capsys, tmp_path):
+    """--objs-devices runs the row-sharded objective on the torch engine (2
+    shards of the CPU here), with the unsharded engine's accepts and poses
+    within 1e-4; torch_graph raises, as mh_tpu's xla_specialized does."""
+    argv = ["suggest", "--objects", "4", "--iters", "8", "--device", "cpu", "--seed", "3",
+            "--objs-devices", "2", *[str(tmp_path / "run.jsonl") if a == "LOG" else a
+                                     for a in extra]]
+    if "torch_graph" in extra:
+        with pytest.raises(ValueError, match="torch engine"):
+            cli.main(argv)
+        return
+    assert cli.main(argv) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert cli.main(["suggest", "--objects", "4", "--iters", "8", "--device", "cpu", "--seed",
+                     "3", "--engine", "torch"]) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert got["accept_rate"] == want["accept_rate"]
+    np.testing.assert_allclose(got["points"], want["points"], atol=1e-4)
+    if "--log" in extra:
+        events = [json.loads(line) for line in (tmp_path / "run.jsonl").read_text().splitlines()]
+        assert [e["event"] for e in events] == ["run_config", "result"]
+        assert events[0]["engine"] == "torch_objsharded"
 
 
 @pytest.mark.parametrize("engine", ["xla", "torch"])
@@ -164,7 +174,8 @@ def test_cli_suggest_torch_engine_matches_mh_tpu(engine, capsys):
 @pytest.mark.parametrize("extra", [[], ["--adapt-ladder", "--mode", "fixed"]])
 def test_cli_temper_matches_mh_tpu(extra, capsys, tmp_path):
     """mh_tpu's temper runs over its 8 test devices (device-count
-    invariant); the port's on one. The same keys and, to the tolerance of
+    invariant); the port's on one shard with --device cpu (on CUDA, over
+    every card). The same keys and, to the tolerance of
     tests/test_torch_tempering.py, the same values."""
     args = ["temper", "--objects", "8", "--replicas", "8", "--rounds", "10",
             "--exchange-every", "3", "--iters", "0", "--seed", "4", *extra]

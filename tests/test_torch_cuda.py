@@ -273,3 +273,54 @@ def test_tempering_and_smc_run_on_card(cuda):
                            spec.build(device=cuda), cfg, None, 16, n_stages=4, mutate_steps=2,
                            adaptive=True, init="prior")
     assert states.pose.device.type == "cuda" and torch.isfinite(diag["log_evidence"])
+
+
+@pytest.mark.parametrize("mode,w_off,moves", [("PARITY", 0.0, 1), ("FIXED", -1.5, 1),
+                                               ("PARITY", 0.0, 8)])
+def test_fused_sharded_on_one_card_equals_one_launch(cuda, mode, w_off, moves):
+    """Four shards of one card: four launches, each keyed by its first
+    global chain, bitwise equal to one launch in every chain."""
+    from mh_tpu_torch.parallel.mesh import chain_mesh
+
+    spec = mh_tpu_torch.demo_scene(24)
+    scene = dataclasses.replace(spec.build(device=cuda),
+                                w_offlimits=torch.tensor(w_off, device=cuda))
+    cfg = mh_tpu_torch.SamplerConfig(mode=mh_tpu_torch.CostMode[mode], beta=1e-3, adapt=True,
+                                     n_moves_per_step=moves, accept_draws=moves)
+    pose0 = spec.initial_pose(device=cuda)
+    want = TF.run_chains_fused(4, pose0, scene, cfg, 64, 40)
+    launches, calls = TF.fused_mh_cuda.launches, TF.fused_chains_reference.calls
+    got = TF.run_chains_fused_sharded(4, pose0, scene, cfg, 64, 40,
+                                      chain_mesh(devices=[cuda] * 4))
+    assert TF.fused_mh_cuda.launches == launches + 4
+    assert TF.fused_chains_reference.calls == calls
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert (got[2] > 0).all()
+
+
+def test_kernels_launch_on_the_tensors_card(cuda):
+    """Each wrapper makes its tensors' device current before it launches:
+    with card 0 current, the kernels run on card 1 and match card 0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card")
+    from mh_tpu_torch.parallel.mesh import chain_mesh
+
+    one = torch.device("cuda", 1)
+    spec = mh_tpu_torch.demo_scene(16)
+    cfg = mh_tpu_torch.SamplerConfig()
+    with torch.cuda.device(0):
+        got = TF.run_chains_fused(2, spec.initial_pose(), spec.build(), cfg, 32, 30, device=one)
+        uni = TF.uniform_block_cuda(7, 3, 40, 64, one)
+        hits = TP.pi_hits_cuda(0, 1 << 22, one)
+        both = TF.run_chains_fused_sharded(2, spec.initial_pose(), spec.build(), cfg, 32, 30,
+                                           chain_mesh(devices=[cuda, one]))
+    torch.cuda.synchronize()
+    assert got[0].device == one and uni.device == one
+    want = TF.run_chains_fused(2, spec.initial_pose(), spec.build(), cfg, 32, 30,
+                               device=torch.device("cuda", 0))
+    for g, b, w in zip(got, both, want):
+        assert torch.equal(g.cpu(), w.cpu()) and torch.equal(b.cpu(), w.cpu())
+    assert torch.equal(uni.cpu(), TF.uniform_block(7, 3, 40, 64))
+    assert hits == TP.pi_hits_reference(0, 1 << 22)

@@ -1,6 +1,7 @@
 """The port's annealed SMC against mh_tpu.sampler.smc on one device.
 
-mh_tpu runs with ``chain_mesh(1)``. Both draw the same threefry stream
+mh_tpu runs with ``chain_mesh(1)``, the port with ``mesh=None``
+(tests/test_torch_parallel.py holds wider meshes). Both draw the same threefry stream
 (particle keys, prior draws, resample keys), so the stage traces agree:
 the resample decisions equal, ESS within 1e-4 relative, the schedule and
 the log-evidence within 1e-5 relative, and each particle's pose within
@@ -20,9 +21,10 @@ import torch
 
 import mh_tpu
 import mh_tpu_torch
-from mh_tpu.parallel.mesh import chain_mesh
+from mh_tpu.parallel.mesh import chain_mesh as J_mesh
 from mh_tpu.sampler.smc import run_smc as J_smc
 from mh_tpu.sampler.smc import systematic_resample_indices as J_resample
+from mh_tpu_torch.parallel.mesh import chain_mesh
 from mh_tpu_torch.sampler import prng
 from mh_tpu_torch.sampler.smc import run_smc, systematic_resample_indices
 from test_torch_scene import to_torch_scene
@@ -48,7 +50,7 @@ def test_smc_matches_mh_tpu(scene8, kw):
     js, ts, pose0 = scene8
     want_s, want = J_smc(jax.random.key(3), pose0, js,
                          mh_tpu.SamplerConfig(iterations=0, mode=mh_tpu.CostMode[mode]),
-                         chain_mesh(1), **ARGS, **kw)
+                         J_mesh(1), **ARGS, **kw)
     got_s, got = run_smc(prng.key(3), torch.as_tensor(pose0), ts,
                          mh_tpu_torch.SamplerConfig(iterations=0,
                                                     mode=mh_tpu_torch.CostMode[mode]),
@@ -113,10 +115,15 @@ def test_adaptive_schedule_is_monotone_and_ess_controlled(scene8):
     assert tuple(states.pose.shape) == (16, 8, 6)
 
 
-def test_bad_init_and_wider_mesh_raise(scene8):
+def test_bad_init_raises_and_wider_mesh_equals_no_mesh(scene8):
     _, ts, pose0 = scene8
     cfg = mh_tpu_torch.SamplerConfig(iterations=0)
     with pytest.raises(ValueError, match="init"):
         run_smc(prng.key(0), torch.as_tensor(pose0), ts, cfg, None, n_particles=4, init="x")
-    with pytest.raises(NotImplementedError, match="Queue 1.8"):
-        run_smc(prng.key(0), torch.as_tensor(pose0), ts, cfg, chain_mesh(2), n_particles=4)
+    want_s, want = run_smc(prng.key(0), torch.as_tensor(pose0), ts, cfg, None, n_particles=4,
+                           n_stages=2, mutate_steps=1)
+    got_s, got = run_smc(prng.key(0), torch.as_tensor(pose0), ts, cfg,
+                         chain_mesh(devices=["cpu"] * 2), n_particles=4, n_stages=2,
+                         mutate_steps=1)
+    assert torch.equal(got_s.pose, want_s.pose)
+    np.testing.assert_allclose(got["ess"].numpy(), want["ess"].numpy(), rtol=1e-6)

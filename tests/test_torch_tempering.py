@@ -1,7 +1,7 @@
 """The port's parallel tempering against mh_tpu.sampler.tempering on one device.
 
-mh_tpu runs with ``chain_mesh(1)``; the port runs the same ladder with its
-partners indexed directly. Both draw the same threefry stream for the MH
+mh_tpu runs with ``chain_mesh(1)``; the port with ``mesh=None``, one shard
+(tests/test_torch_parallel.py holds wider meshes). Both draw the same threefry stream for the MH
 steps and the pair decisions, so the swap-rate traces agree and each
 replica ends at the same pose, to the chain engine's tolerance
 (tests/test_torch_mh.py): poses within 1e-4 in all but at most 2 of 8
@@ -18,9 +18,10 @@ import torch
 
 import mh_tpu
 import mh_tpu_torch
-from mh_tpu.parallel.mesh import chain_mesh
+from mh_tpu.parallel.mesh import chain_mesh as J_mesh
 from mh_tpu.sampler.tempering import geometric_ladder as J_ladder
 from mh_tpu.sampler.tempering import run_tempered as J_tempered
+from mh_tpu_torch.parallel.mesh import chain_mesh
 from mh_tpu_torch.sampler import prng
 from mh_tpu_torch.sampler.tempering import geometric_ladder, run_tempered
 from test_torch_scene import to_torch_scene
@@ -42,7 +43,7 @@ def test_tempering_matches_mh_tpu(scene8, adapt, mode):
     js, ts, pose0 = scene8
     want = J_tempered(jax.random.key(5), pose0, js,
                       mh_tpu.SamplerConfig(iterations=0, mode=mh_tpu.CostMode[mode]),
-                      chain_mesh(1), adapt_ladder=adapt, **ARGS)
+                      J_mesh(1), adapt_ladder=adapt, **ARGS)
     got = run_tempered(prng.key(5), torch.as_tensor(pose0), ts,
                        mh_tpu_torch.SamplerConfig(iterations=0,
                                                   mode=mh_tpu_torch.CostMode[mode]),
@@ -87,11 +88,15 @@ def test_explicit_betas_and_target_replica(scene8):
     torch.testing.assert_close(states.costs.as_vector(), ref, rtol=2e-4, atol=2e-3)
 
 
-def test_mesh_of_one_device_runs_and_wider_raises(scene8):
+def test_mesh_of_one_device_and_wider_equal_no_mesh(scene8):
+    """The port's own mesh: one CPU shard, and 4 (one replica each), give
+    the bits of mesh=None (tests/test_torch_parallel.py holds every shard
+    count)."""
     _, ts, pose0 = scene8
     cfg = mh_tpu_torch.SamplerConfig(iterations=0)
-    run_tempered(prng.key(0), torch.as_tensor(pose0), ts, cfg, chain_mesh(1), n_replicas=4,
-                 rounds=1)
-    with pytest.raises(NotImplementedError, match="Queue 1.8"):
-        run_tempered(prng.key(0), torch.as_tensor(pose0), ts, cfg, chain_mesh(2),
-                     n_replicas=4, rounds=1)
+    want = run_tempered(prng.key(0), torch.as_tensor(pose0), ts, cfg, None, n_replicas=4,
+                        rounds=2)
+    for k in (1, 4):
+        got = run_tempered(prng.key(0), torch.as_tensor(pose0), ts, cfg,
+                           chain_mesh(devices=["cpu"] * k), n_replicas=4, rounds=2)
+        assert torch.equal(got[0].pose, want[0].pose) and torch.equal(got[1], want[1])
