@@ -89,7 +89,28 @@ non-zero):
    2 chains, 10 steps, objs_devices=4)`` (past the kernel's object limit)
    must accept as the unsharded torch engine, with poses within 1e-4 and
    totals matching ``cost_terms``; each row prints its ms per call;
-13. time: CUDA-event times, as the slope of the minimum over repeats
+13. multiprocess: 2 processes (``chip_smoke.py --worker multiprocess``)
+   with 2 shards of card 0 each, on ``gloo``, asked for (two processes
+   name one card, which NCCL refuses; the phase prints why), so 4 global
+   shards: the fused kernel at 100 objects x 1024 chains x 1000 steps in
+   PARITY and weighted FIXED must launch twice in each process, call no
+   plain version and, gathered, equal one launch bit for bit in every
+   chain; the torch engine (20 steps), the collective runner, tempering
+   (with and without ``adapt_ladder``) and SMC (with and without
+   ``adaptive``) at phase sharded's sizes must equal its in-process 4-shard
+   mesh bit for bit; each row prints the workers' and the in-process CUDA-
+   event ms per call. On a host with 2 or more cards the same runs once
+   more with one process per card on ``nccl``;
+14. recovery: the torch engine at 100 objects x 1024 chains on the card
+   runs 2 R rounds uninterrupted, and R rounds, a checkpoint and SIGKILL
+   in another process, which a fresh process restores and runs R more: the
+   sha256 of the pose and the accept counts must equal; then the same with
+   2 processes of 2 shards each and per-process shard files; then the save
+   and restore time of the 1024-chain state;
+15. metrics: ``summarize_chains`` (ESS, split R-hat, mean, std) of the
+   cost traces of 1024 chains x 1000 steps at 100 objects on the card
+   against the CPU, within rtol 1e-4, with its CUDA-event time;
+16. time: CUDA-event times, as the slope of the minimum over repeats
    against the step or sample count, for each kernel and its plain version,
    for the torch engine eager and as a CUDA graph beside the fused kernel
    (100 objects x 1024 chains, one move and M = 64, with the graph's
@@ -103,7 +124,7 @@ non-zero):
    the slab state's own count), and pi's SASS instructions
    per sample (``cuobjdump -sass``) over the SMs' issue rate at their top
    clock;
-14. profile: ``torch.profiler`` over 10 steps of the torch engine at 100
+17. profile: ``torch.profiler`` over 10 steps of the torch engine at 100
    objects x 1024 chains, one move and M = K = 64, eager and as a CUDA
    graph: kernels per step, device-busy share of the wall time, top
    kernels.
@@ -115,7 +136,9 @@ warp and step phase).
 
 Then one JSON line describing the kernels and, last, the device line.
 Without a CUDA device, or without the package beside this script, it
-exits non-zero before printing any result.
+exits non-zero before printing any result. ``--worker ...`` runs one
+process of phases multiprocess and recovery; the phases start these
+themselves, each with a timeout, and a worker that fails ends the others.
 """
 
 from __future__ import annotations
@@ -127,8 +150,10 @@ import io
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -142,7 +167,8 @@ COMPOUND_CASES = ((4, 1), (4, 4), (1, 16), (1, 30))  # (moves per step, accept d
 BLOCK = dict(n_moves_per_step=64, accept_draws=64)  # BASELINE config 3, layout_block
 SWEEP_OBJECTS = (32, 100, 256, 512)
 PHASES = ("rng", "kernel_vs_plain", "main_path", "pi", "cli", "prng", "torch_engine_vs_cpu",
-          "main_path_torch", "tempering_smc", "sharded", "time", "profile")
+          "main_path_torch", "tempering_smc", "sharded", "multiprocess", "recovery", "metrics",
+          "time", "profile")
 # named only: weighted FIXED ms/step by slab width (the kernel takes the
 # width at launch), the measurement behind fused_mh.off_slab_width; and the
 # MH kernel's variant builds (kernel_variants below)
@@ -164,10 +190,291 @@ ISSUE_THREAD_INSTR_PER_SM_CLOCK = 4 * 32
 # off-limits pair overlap (the later object's box: 4 adds; the overlap: 2
 # max, 2 min, 2 compares, 2 sub, a multiply; the mask multiply and the add)
 SYM_VAL_OPS, OBJECT_OPS, OVERLAP_OPS = 14, 60, 15
+# runs across processes: each worker has its own timeout, and a worker
+# that fails ends the others (no worker waits on a dead peer)
+WORKER_TIMEOUT_S = 300
+RECOVERY_ROUNDS, RECOVERY_ITERS = 3, 10  # R rounds before the kill, R after
+# the in-process 4-shard runs of phase sharded that phase multiprocess
+# repeats across 2 processes x 2 shards (BASELINE config 4 and 5's sizes)
+TORCH_STEPS, COLLECTIVE_ROUNDS = 20, (10, 10)
+TEMPER = dict(n_replicas=64, exchange_every=5, rounds=24)
+SMC = dict(n_particles=64, n_stages=8, mutate_steps=5)
 
 
 def say(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn(jobs, env, timeout: float = WORKER_TIMEOUT_S):
+    """Run ``python3 chip_smoke.py --worker <args>`` for each ``(args,
+    ends_ok)`` of ``jobs`` at once; ``ends_ok(rc)`` says which exit codes a
+    job may end with. As soon as one ends otherwise, or the timeout runs
+    out, every other is killed. Returns ``[(rc, stdout, stderr)]``; raises
+    on a timeout."""
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [(open(os.path.join(tmp, f"{i}.out"), "w+"), open(os.path.join(tmp, f"{i}.err"), "w+"))
+                for i in range(len(jobs))]
+        procs = [subprocess.Popen([sys.executable, str(HERE / "chip_smoke.py"), "--worker", *args],
+                                  stdout=out, stderr=err, env=env, cwd=HERE)
+                 for (args, _), (out, err) in zip(jobs, logs)]
+        deadline = time.monotonic() + timeout
+        timed_out = False
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.returncode is not None and not ok(p.returncode)
+                       for p, (_, ok) in zip(procs, jobs)):
+                    break
+                if time.monotonic() > deadline:
+                    timed_out = True
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            for p in procs:
+                p.wait()
+        results = []
+        for p, (out, err) in zip(procs, logs):
+            out.seek(0)
+            err.seek(0)
+            results.append((p.returncode, out.read(), err.read()))
+            out.close()
+            err.close()
+    for (args, ok), (rc, so, se) in zip(jobs, results):
+        if timed_out or not ok(rc):
+            raise AssertionError(f"worker {args} ended with {rc}"
+                                 f"{' at the timeout' if timed_out else ''}:\n{so[-2000:]}\n"
+                                 f"{se[-4000:]}")
+    return results
+
+
+def worker_result(out: str) -> dict:
+    """The ``RESULT`` line a worker printed."""
+    line = next(ln for ln in out.splitlines() if ln.startswith("RESULT "))
+    return json.loads(line[len("RESULT "):])
+
+
+def state_fields(s) -> dict:
+    """An MHState's tensors by name (costs as one [C, 8] vector)."""
+    return {"pose": s.pose, "costs": s.costs.as_vector(), "key": s.key, "step": s.step,
+            "n_accept": s.n_accept, "log_scale": s.log_scale}
+
+
+def runs_across_processes(dev) -> dict:
+    """The programs phase multiprocess compares, by name, as zero-argument
+    callables of a mesh, each returning its tensors by name in this
+    process (chains leading); ``dev`` the device of the scenes."""
+    import dataclasses as dc
+
+    from mh_tpu_torch import CostMode, SamplerConfig, demo_scene
+    from mh_tpu_torch.kernels import fused_mh as F
+    from mh_tpu_torch.parallel.sharded import run_chains_collective, run_chains_sharded
+    from mh_tpu_torch.sampler import prng
+    from mh_tpu_torch.sampler.smc import run_smc
+    from mh_tpu_torch.sampler.tempering import run_tempered
+
+    head = demo_scene(100)
+    fixed_head = dc.replace(head, w_offlimits=-1.5)
+    cfg = SamplerConfig(iterations=1000, n_chains=1024)
+    fixed_cfg = dc.replace(cfg, mode=CostMode.FIXED)
+    scene, fixed_scene = head.build(device=dev), fixed_head.build(device=dev)
+    pose100 = head.initial_pose(device=dev)
+    spec32 = demo_scene(32)
+    pose32, scene32 = spec32.initial_pose(device=dev), spec32.build(device=dev)
+    key = prng.key(0, dev)
+    tcfg = SamplerConfig()
+
+    def fused(kscene, kcfg):
+        def run(mesh):
+            out = F.run_chains_fused_sharded(0, pose100, kscene, kcfg, kcfg.n_chains,
+                                             kcfg.iterations, mesh)
+            return dict(zip(("pose", "breakdown", "n_accept", "step_scale"), out))
+        return run
+
+    def torch_engine(mesh):
+        return state_fields(run_chains_sharded(
+            key, pose100, scene, SamplerConfig(iterations=TORCH_STEPS, n_chains=1024), mesh))
+
+    def collective(mesh):
+        s, rates, log_scale = run_chains_collective(
+            key, pose100, scene,
+            SamplerConfig(iterations=0, n_chains=1024, adapt_rate=0.3, target_accept=0.3), mesh,
+            *COLLECTIVE_ROUNDS)
+        return {**state_fields(s), "rates": rates, "shared_log_scale": log_scale}
+
+    def tempering(adapt):
+        def run(mesh):
+            out = run_tempered(key, pose32, scene32, tcfg, mesh, adapt_ladder=adapt, **TEMPER)
+            return {**state_fields(out[0]), "swap_rates": out[1],
+                    **({"betas": out[2]} if adapt else {})}
+        return run
+
+    def smc(adaptive):
+        def run(mesh):
+            s, diag = run_smc(key, pose32, scene32, tcfg, mesh, adaptive=adaptive, **SMC)
+            return {**state_fields(s), **diag}
+        return run
+
+    return {"fused_parity": fused(scene, cfg), "fused_fixed_weighted": fused(fixed_scene, fixed_cfg),
+            "torch": torch_engine, "collective": collective,
+            "tempering": tempering(False), "tempering_adapted": tempering(True),
+            "smc": smc(False), "smc_adaptive": smc(True)}
+
+
+# what of each program's output is this process's rows (gathered across
+# processes) rather than a value every process holds
+SCALAR_OUTPUTS = {"rates", "shared_log_scale", "swap_rates", "betas", "log_evidence", "ess", "resampled"}
+
+
+def multiprocess_worker(pid: int, nproc: int, port: int, out: str, backend: str,
+                        devices: str) -> None:
+    """One process of phase multiprocess: joins the group, runs every
+    program on the global mesh of ``devices`` (this process's shards),
+    gathers each program's rows and prints what it counted and timed;
+    process 0 saves the gathered tensors to ``out``."""
+    import torch
+
+    from mh_tpu_torch import SamplerConfig, demo_scene
+    from mh_tpu_torch.kernels import fused_mh as F
+    from mh_tpu_torch.parallel.multihost import global_chain_mesh, initialize, process_allgather
+    from mh_tpu_torch.sampler import prng
+    from mh_tpu_torch.sampler.mh import run_chains
+
+    chosen = initialize(f"127.0.0.1:{port}", nproc, pid, backend=backend)
+    mesh = global_chain_mesh(devices.split(","))
+    dev = mesh.axis_devices("chains")[0]
+    res = {"backend": chosen[0], "reason": chosen[1], "shards": mesh.axis_shards("chains"),
+           "devices": [str(d) for d in mesh.axis_devices("chains")], "programs": {}}
+    # untimed and uncounted: load the kernel library and the engine's CUDA
+    # modules, so that no program's time holds the process's first launch
+    warm = demo_scene(100)
+    run_chains(prng.key(0, dev), warm.initial_pose(device=dev), warm.build(device=dev),
+               SamplerConfig(iterations=2, n_chains=2))
+    F.run_chains_fused(0, warm.initial_pose(device=dev), warm.build(device=dev),
+                       SamplerConfig(), 2, 2)
+    torch.cuda.synchronize()
+    gathered = {}
+    for name, run in runs_across_processes(dev).items():
+        F.fused_mh_cuda.launches = F.fused_chains_reference.calls = 0
+        got, ms = timed(lambda: run(mesh))
+        res["programs"][name] = dict(call_ms=ms, launches=F.fused_mh_cuda.launches,
+                                     plain_calls=F.fused_chains_reference.calls)
+        gathered[name] = {k: (v if k in SCALAR_OUTPUTS else process_allgather(v)).cpu()
+                          for k, v in got.items()}
+    if "jax" in sys.modules or "mh_tpu" in sys.modules:
+        raise AssertionError("a worker imported JAX or mh_tpu")
+    if pid == 0:
+        torch.save(gathered, out)
+    print("RESULT " + json.dumps(res), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def recovery_worker(mode: str, path: str, dist_args: list[str]) -> None:
+    """One process of phase recovery, the torch engine on the card at 100
+    objects x 1024 chains: ``full`` runs 2 R rounds, ``crash`` R rounds,
+    checkpoints and SIGKILLs itself, ``resume`` restores and runs R more;
+    with ``<pid> <nproc> <port>`` over 2 shards of card 0 per process,
+    each process saving and restoring only its own rows."""
+    import hashlib
+    import signal
+
+    import numpy as np
+    import torch
+
+    from mh_tpu_torch import SamplerConfig, demo_scene
+    from mh_tpu_torch.parallel.multihost import global_chain_mesh, initialize, process_allgather
+    from mh_tpu_torch.parallel.sharded import continue_chains_sharded, run_chains_sharded
+    from mh_tpu_torch.sampler import prng
+    from mh_tpu_torch.sampler.mh import continue_chains, run_chains
+    from mh_tpu_torch.utils import checkpoint as ckpt
+
+    dev = torch.device("cuda", 0)
+    distributed = bool(dist_args)
+    pid = int(dist_args[0]) if distributed else 0
+    if distributed:
+        initialize(f"127.0.0.1:{dist_args[2]}", int(dist_args[1]), pid)
+        mesh = global_chain_mesh([dev] * 2)
+    spec = demo_scene(100)
+    scene, pose0 = spec.build(device=dev), spec.initial_pose(device=dev)
+    key = prng.key(42, dev)
+    cfg = SamplerConfig(iterations=RECOVERY_ITERS, n_chains=1024)
+
+    def first_round():
+        if distributed:
+            return run_chains_sharded(key, pose0, scene, cfg, mesh)
+        return run_chains(key, pose0, scene, cfg)[0]
+
+    def next_round(states):
+        if distributed:
+            return continue_chains_sharded(states, scene, cfg, mesh)
+        return continue_chains(states, scene, cfg)
+
+    def report(states):
+        if distributed:
+            states = states.map(process_allgather)
+        if pid == 0:
+            print("RESULT " + json.dumps({
+                "pose_sha": hashlib.sha256(states.pose.cpu().numpy().tobytes()).hexdigest(),
+                "n_accept_sha": hashlib.sha256(
+                    np.ascontiguousarray(states.n_accept.cpu().numpy()).tobytes()).hexdigest(),
+                "steps": sorted(set(states.step.cpu().tolist())),
+                "chains_accepting": int((states.n_accept > 0).sum())}), flush=True)
+
+    if mode == "full":
+        states = first_round()
+        for _ in range(2 * RECOVERY_ROUNDS - 1):
+            states = next_round(states)
+        report(states)
+    elif mode == "crash":
+        states = first_round()
+        for _ in range(RECOVERY_ROUNDS - 1):
+            states = next_round(states)
+        if distributed:
+            ckpt.save_local_shards(path, states)
+            torch.distributed.barrier()  # every file written before any process dies
+        else:
+            ckpt.save_state(path, states)
+        print("CHECKPOINTED", flush=True)
+        os.kill(os.getpid(), signal.SIGKILL)
+    else:
+        template = first_round()  # structure, shapes and dtypes; values replaced
+        states = (ckpt.restore_local_shards(path, template) if distributed
+                  else ckpt.restore_state(path, template))
+        for _ in range(RECOVERY_ROUNDS):
+            states = next_round(states)
+        report(states)
+    if "jax" in sys.modules or "mh_tpu" in sys.modules:
+        raise AssertionError("a worker imported JAX or mh_tpu")
+    if distributed:
+        torch.distributed.destroy_process_group()
+
+
+def worker_main(args: list[str]) -> int:
+    """``--worker multiprocess <pid> <nproc> <port> <out> <backend> <devices>``
+    or ``--worker recovery <mode> <path> [<pid> <nproc> <port>]``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke worker: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(HERE))
+    if args[0] == "multiprocess":
+        pid, nproc, port = map(int, args[1:4])
+        multiprocess_worker(pid, nproc, port, *args[4:7])
+    elif args[0] == "recovery" and args[1] in ("full", "crash", "resume"):
+        recovery_worker(args[1], args[2], args[3:])
+    else:
+        raise SystemExit(f"unknown worker {args}")
+    return 0
 
 
 def events_ms(fn, repeats: int) -> float:
@@ -631,6 +938,9 @@ def main(argv=None) -> int:
 
     max_err, pi_err, plain_call_ms = 0.0, 0, {}
     fused_launches, fused_calls, pi_launches = 0, 0, 0
+    # phase sharded's in-process 4-shard runs, which phase multiprocess
+    # repeats across processes: name -> (outputs by name, CUDA-event ms)
+    mesh4_runs = {}
 
     if "rng" in phases:
         # 3. rng
@@ -953,9 +1263,10 @@ def main(argv=None) -> int:
                     card=smi)
 
         # the torch engine and collective adaptation, 4 shards against 1
-        ecfg = SamplerConfig(iterations=20, n_chains=1024)
+        ecfg = SamplerConfig(iterations=TORCH_STEPS, n_chains=1024)
         one, one_ms = timed(lambda: M.run_chains(key0, pose100, scene, ecfg)[0])
         four, four_ms = timed(lambda: run_chains_sharded(key0, pose100, scene, ecfg, mesh4))
+        mesh4_runs["torch"] = (state_fields(four), four_ms)
         say("sharded_torch", objs=100, chains=ecfg.n_chains, steps=ecfg.iterations, shards=4,
             chains_differing=state_chains_differing(four, one), call_ms=four_ms,
             one_shard_call_ms=one_ms, card=smi)
@@ -963,12 +1274,15 @@ def main(argv=None) -> int:
         outs = {}
         for mname, mesh in (("one", mesh1), ("four", mesh4)):
             outs[mname] = timed(lambda: run_chains_collective(key0, pose100, scene, ccfg, mesh,
-                                                              rounds=10, steps_per_round=10))
+                                                              *COLLECTIVE_ROUNDS))
         (c1, c1_ms), (c4, c4_ms) = outs["one"], outs["four"]
+        mesh4_runs["collective"] = ({**state_fields(c4[0]), "rates": c4[1],
+                                     "shared_log_scale": c4[2]}, c4_ms)
         if not (torch.equal(c1[1], c4[1]) and torch.equal(c1[2], c4[2])):
             raise AssertionError(f"collective: 4 shards {c4[1].tolist()} {float(c4[2])} against "
                                  f"1 shard {c1[1].tolist()} {float(c1[2])}")
-        say("sharded_collective", objs=100, chains=ccfg.n_chains, rounds=10, steps_per_round=10,
+        say("sharded_collective", objs=100, chains=ccfg.n_chains, rounds=COLLECTIVE_ROUNDS[0],
+            steps_per_round=COLLECTIVE_ROUNDS[1],
             shards=4, rates=c4[1].tolist(), log_scale=float(c4[2]), rates_bitwise=True,
             chains_differing=state_chains_differing(c4[0], c1[0]), call_ms=c4_ms,
             one_shard_call_ms=c1_ms, card=smi)
@@ -977,22 +1291,29 @@ def main(argv=None) -> int:
         pose32, scene32 = spec32.initial_pose(device=dev), spec32.build(device=dev)
         for adapt in (False, True):
             (a, a_ms), (b, b_ms) = (timed(lambda m=m: run_tempered(
-                prng.key(0, dev), pose32, scene32, tcfg, m, 64, exchange_every=5, rounds=24,
-                adapt_ladder=adapt)) for m in (None, mesh4))
+                prng.key(0, dev), pose32, scene32, tcfg, m, adapt_ladder=adapt, **TEMPER))
+                for m in (None, mesh4))
             if not all(torch.equal(x, y) for x, y in zip((a[0].pose, *a[1:]), (b[0].pose, *b[1:]))):
                 raise AssertionError(f"tempering (adapt_ladder={adapt}): 4 shards differ from 1")
-            say("sharded_tempering", replicas=64, objs=32, exchange_every=5, rounds=24,
+            mesh4_runs["tempering_adapted" if adapt else "tempering"] = (
+                {**state_fields(b[0]), "swap_rates": b[1], **({"betas": b[2]} if adapt else {})},
+                b_ms)
+            say("sharded_tempering", replicas=TEMPER["n_replicas"], objs=32,
+                exchange_every=TEMPER["exchange_every"], rounds=TEMPER["rounds"],
                 adapt_ladder=adapt, shards=4, bitwise=True, call_ms=b_ms, one_shard_call_ms=a_ms,
                 card=smi)
         for adaptive in (False, True):
             (a, a_ms), (b, b_ms) = (timed(lambda m=m: run_smc(
-                prng.key(0, dev), pose32, scene32, tcfg, m, 64, n_stages=8, mutate_steps=5,
-                adaptive=adaptive)) for m in (None, mesh4))
+                prng.key(0, dev), pose32, scene32, tcfg, m, adaptive=adaptive, **SMC))
+                for m in (None, mesh4))
             if not torch.equal(a[0].pose, b[0].pose):
                 raise AssertionError(f"smc (adaptive={adaptive}): 4 shards' poses differ from 1")
             for k in ("ess", "log_evidence"):
                 np.testing.assert_allclose(b[1][k].cpu().numpy(), a[1][k].cpu().numpy(), rtol=1e-6)
-            say("sharded_smc", particles=64, objs=32, stages=8, mutate_steps=5, adaptive=adaptive,
+            mesh4_runs["smc_adaptive" if adaptive else "smc"] = ({**state_fields(b[0]), **b[1]},
+                                                                 b_ms)
+            say("sharded_smc", particles=SMC["n_particles"], objs=32, stages=SMC["n_stages"],
+                mutate_steps=SMC["mutate_steps"], adaptive=adaptive,
                 shards=4, poses_bitwise=True,
                 log_evidence_rel_gap=abs(float(b[1]["log_evidence"] / a[1]["log_evidence"]) - 1),
                 call_ms=b_ms, one_shard_call_ms=a_ms, card=smi)
@@ -1027,8 +1348,152 @@ def main(argv=None) -> int:
             ms_per_step=(got_ms - short_ms) / (hcfg.iterations - short.iterations),
             call_ms=got_ms, unsharded_call_ms=want_ms, card=smi)
 
+    if "multiprocess" in phases:
+        # 13. runs across processes: 2 processes x 2 shards of card 0 on gloo
+        # (and, on a host with more cards, one process per card on nccl)
+        # against one launch (the fused kernel) or the in-process 4-shard
+        # mesh of phase sharded (the rest), bit for bit in every chain
+        dev0 = torch.device("cuda", 0)
+        mesh4, mesh1 = chain_mesh(devices=[dev0] * 4), chain_mesh(devices=[dev0])
+        progs = runs_across_processes(dev)
+        layouts = {"cuda0_2x2": ("gloo", ["cuda:0,cuda:0"] * 2,
+                                 "both processes name card 0; nccl refuses two ranks on one card")}
+        if torch.cuda.device_count() > 1:
+            layouts["card_each_2x2"] = ("nccl", [f"cuda:{i},cuda:{i}" for i in range(2)],
+                                        "each process names a card of its own")
+        for lname, (backend, devs, why) in layouts.items():
+            with tempfile.TemporaryDirectory() as tmp:
+                out, port = os.path.join(tmp, "gathered.pt"), free_port()
+                (_, so0, _), (_, so1, _) = spawn(
+                    [(["multiprocess", str(pid), "2", str(port), out, backend, devs[pid]],
+                      lambda rc: rc == 0) for pid in range(2)], env)
+                gathered = torch.load(out, weights_only=True)
+            res = [worker_result(so0), worker_result(so1)]
+            if any(r["backend"] != backend for r in res):
+                raise AssertionError(f"{lname}: asked for {backend}, got "
+                                     f"{[r['backend'] for r in res]}")
+            say("multiprocess_backend", layout=lname, processes=2, backend=res[0]["backend"],
+                reason=f"{res[0]['reason']}: {why}", shards=[r["shards"] for r in res],
+                devices=[r["devices"] for r in res])
+            for name, run in progs.items():
+                counts = [r["programs"][name] for r in res]
+                extra = {}
+                if name.startswith("fused"):
+                    if name not in mesh4_runs:
+                        mesh4_runs[name] = timed(lambda: run(mesh4))
+                        zero_counts()
+                        want, one_ms = timed(lambda: run(mesh1))
+                        if read_counts()["fused_mh_cuda.launches"] != 1:
+                            raise AssertionError(f"{name}: one launch launched {read_counts()}")
+                        mesh4_runs[name + "_one_launch"] = (want, one_ms)
+                    want, one_ms = mesh4_runs[name + "_one_launch"]
+                    extra = dict(one_launch_call_ms=one_ms,
+                                 chains_accepting=int((want["n_accept"] > 0).sum()))
+                    if any(c["launches"] != 2 or c["plain_calls"] for c in counts):
+                        raise AssertionError(f"{name} on {lname}: {counts}")
+                elif name not in mesh4_runs:
+                    mesh4_runs[name] = timed(lambda: run(mesh4))
+                if not name.startswith("fused"):
+                    want = mesh4_runs[name][0]
+                got = gathered[name]
+                if set(got) != set(want):
+                    raise AssertionError(f"{name}: outputs {sorted(got)} against {sorted(want)}")
+                rows = [k for k in want if k not in SCALAR_OUTPUTS]
+                differ = _chains_differing([(got[k], want[k]) for k in rows], len(want["pose"]))
+                scalars_equal = all(torch.equal(got[k], want[k].cpu())
+                                    for k in want if k in SCALAR_OUTPUTS)
+                if differ or not scalars_equal:
+                    raise AssertionError(f"{name} on {lname}: {differ} chains differ, scalar "
+                                         f"outputs equal: {scalars_equal}")
+                say("multiprocess", layout=lname, program=name, chains=len(want["pose"]),
+                    chains_differing=differ, bitwise=True,
+                    launches_per_process=[c["launches"] for c in counts],
+                    plain_calls=[c["plain_calls"] for c in counts],
+                    call_ms_per_process=[c["call_ms"] for c in counts],
+                    in_process_4_shards_call_ms=mesh4_runs[name][1], **extra, card=smi)
+
+    if "recovery" in phases:
+        # 14. kill and resume: the torch engine on the card at 100 objects x
+        # 1024 chains, R rounds, a checkpoint, SIGKILL, a fresh process
+        # restores and runs R more; in one process, then in 2 processes
+        # with per-process shard files. The uninterrupted runs and the
+        # crashes run at once, then the resumes.
+        with tempfile.TemporaryDirectory() as tmp:
+            one, two = os.path.join(tmp, "one"), os.path.join(tmp, "two")
+            ok, killed = (lambda rc: rc == 0), (lambda rc: rc == -signal.SIGKILL)
+            p_full, p_crash, p_resume = free_port(), free_port(), free_port()
+
+            def pair(mode, path, port, ends):
+                return [(["recovery", mode, path, str(pid), "2", str(port)], ends) for pid in (0, 1)]
+
+            t0 = time.perf_counter()
+            # a process whose peer's connection drops a moment before its own
+            # kill may exit non-zero instead; either way it died after saving
+            first = spawn([(["recovery", "full", one], ok), (["recovery", "crash", one], killed),
+                           *pair("full", two, p_full, ok),
+                           *pair("crash", two, p_crash, lambda rc: rc != 0)], env)
+            first_s = time.perf_counter() - t0
+            if not all("CHECKPOINTED" in first[i][1] for i in (1, 4, 5)):
+                raise AssertionError("a crash worker died before its checkpoint")
+            files = [one + ".pt", two + ".proc0.pt", two + ".proc1.pt"]
+            if not all(os.path.exists(f) for f in files):
+                raise AssertionError(f"checkpoint files missing: {os.listdir(tmp)}")
+            t0 = time.perf_counter()
+            second = spawn([(["recovery", "resume", one], ok), *pair("resume", two, p_resume, ok)],
+                           env)
+            second_s = time.perf_counter() - t0
+        single_full, pair_full = worker_result(first[0][1]), worker_result(first[2][1])
+        single_resume, pair_resume = worker_result(second[0][1]), worker_result(second[1][1])
+        if single_resume != single_full or pair_resume != pair_full:
+            raise AssertionError(f"resumed runs differ: {single_resume} / {single_full}, "
+                                 f"{pair_resume} / {pair_full}")
+        # save and restore of the state in this process (host clock, the
+        # card synchronised before and after)
+        from mh_tpu_torch.utils.checkpoint import restore_state, save_state
+
+        rstate, _ = M.run_chains(prng.key(42, dev), pose100, scene,
+                                 SamplerConfig(iterations=RECOVERY_ITERS, n_chains=1024))
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "state")
+            (_, save_s) = wall(lambda: save_state(path, rstate))
+            nbytes = os.path.getsize(path + ".pt")
+            back, restore_s = wall(lambda: restore_state(path, rstate.map(torch.empty_like)))
+        if state_chains_differing(back, rstate) or not torch.equal(back.key, rstate.key):
+            raise AssertionError("a restored state differs from the saved one")
+        say("recovery", objs=100, chains=1024, rounds_before_kill=RECOVERY_ROUNDS,
+            steps_per_round=RECOVERY_ITERS, single_process_equal=True,
+            two_processes_equal=True, single=single_full, two_processes=pair_full,
+            two_processes_equal_single=pair_full == single_full,
+            checkpoint_save_ms=save_s * 1e3, checkpoint_restore_ms=restore_s * 1e3,
+            checkpoint_bytes=nbytes, full_and_crash_wall_s=first_s, resume_wall_s=second_s,
+            card=smi)
+
+    if "metrics" in phases:
+        # 15. ESS, split R-hat, mean and std of the cost traces of 1024 chains
+        # x 1000 steps (100 objects) on the card against the CPU
+        from mh_tpu_torch.utils.metrics import summarize_chains
+
+        mcfg = SamplerConfig(iterations=1000, n_chains=1024)
+        (_, traces), trace_ms = timed(
+            lambda: M.compile_chains(scene, mcfg, trace_costs=True)(key0, pose100))
+        got, got_ms = timed(lambda: summarize_chains(traces))
+        best_ms = events_ms(lambda: summarize_chains(traces), 3)
+        want = summarize_chains(traces.cpu())
+        for k, v in want.items():
+            torch.testing.assert_close(got[k].cpu(), v, rtol=1e-4, atol=1e-6)
+        if not all(torch.isfinite(v).all() for v in got.values()):
+            raise AssertionError("summarize_chains returned non-finite values")
+        ess = got["ess"].cpu()
+        say("metrics", objs=100, chains=1024, steps=1000, trace_shape=list(traces.shape),
+            summarize_ms=best_ms, first_call_ms=got_ms, trace_run_ms=trace_ms,
+            max_rel_gap_vs_cpu={k: float(((got[k].cpu() - v).abs()
+                                          / v.abs().clamp_min(1e-30)).max())
+                                for k, v in want.items()},
+            ess_min=float(ess.min()), ess_median=float(ess.median()), ess_max=float(ess.max()),
+            r_hat=float(got["r_hat"]), card=smi)
+
     if "time" in phases:
-        # 13. time (CUDA events; slope over step or sample counts, minimum of repeats)
+        # 16. time (CUDA events; slope over step or sample counts, minimum of repeats)
         def fused_time(kpk, ksteps, psteps, repeats):
             kt = [events_ms(lambda s=s: F.fused_mh_cuda(kpk, pose0, 0, s), repeats) for s in ksteps]
             pt = [events_ms(lambda s=s: F.fused_chains_reference(kpk, pose0, 0, s), 2)
@@ -1275,7 +1740,7 @@ def main(argv=None) -> int:
         _build.load = default_load
 
     if "profile" in phases:
-        # 14. profile: what the torch engine's step is made of on the card
+        # 17. profile: what the torch engine's step is made of on the card
         for name, kcfg in (("single", cfg), ("block", block_cfg)):
             for graph in (False, True):
                 say("profile", card=smi, objs=100, chains=kcfg.n_chains, path=name,
@@ -1319,4 +1784,4 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(worker_main(sys.argv[2:]) if sys.argv[1:2] == ["--worker"] else main())

@@ -114,7 +114,9 @@ def suggest_layouts(
     chain) or the ``torch`` engine (``torch_graph`` raises; so does a
     per-chain ``pose0`` there). Both are bitwise equal to one shard. With
     no ``mesh``, a CUDA run on a host with more than one card spans every
-    card where the chains divide among them and ``pose0`` is shared.
+    card where the chains divide among them and ``pose0`` is shared. A
+    mesh that spans processes raises: each process calls the sharded
+    runners itself.
 
     ``objs_devices``: split the O(N^2) objective within each chain into
     this many row shards (:mod:`mh_tpu_torch.parallel.objshard`, the path
@@ -145,6 +147,9 @@ def suggest_layouts(
 
 def _dispatch_layouts(scene, cfg, key, pose0, engine, mesh, objs_devices, logger, log_every,
                       device):
+    if mesh is not None and mesh.spans_processes:
+        raise ValueError("suggest_layouts runs in one process; for a mesh that spans processes "
+                         "call run_chains_sharded or run_chains_fused_sharded in each process")
     if device is None and mesh is not None:
         device = mesh.devices.flat[0]
     if isinstance(scene, SceneSpec):

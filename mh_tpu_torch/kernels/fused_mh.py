@@ -60,7 +60,7 @@ from mh_tpu_torch.kernels.counter_rng import M32, counter_bits
 from mh_tpu_torch.models.scene import Scene
 from mh_tpu_torch.ops import geometry as geo
 from mh_tpu_torch.ops.costs import floor_mod
-from mh_tpu_torch.parallel.mesh import CHAINS_AXIS, concat, local_count, split_rows
+from mh_tpu_torch.parallel.mesh import chain_shards, concat, local_count
 
 Tensor = torch.Tensor
 
@@ -909,21 +909,23 @@ def run_chains_fused_sharded(
 ):
     """The fused kernel once per shard of ``mesh``'s chains axis.
 
-    The scene is packed once on each distinct device; shard ``d`` runs
-    chains ``d n_local .. (d + 1) n_local - 1`` with its first global chain
-    index, which keys the kernel's counter-based stream, so the result is
-    bitwise that of one launch on any number of shards. Every shard is
-    launched before any result is read; the outputs are joined, chains in
-    shard order, on the first shard's device. Same returns as
-    :func:`run_chains_fused`.
+    Each process packs the scene once on each of its distinct devices and
+    launches its own shards: shard ``d`` runs chains ``d n_local .. (d + 1)
+    n_local - 1`` with its first global chain index, which keys the
+    kernel's counter-based stream, so the result is bitwise that of one
+    launch on any number of shards and processes. Every shard is launched
+    before any result is read; this process's outputs are joined, chains in
+    shard order, on its first shard's device (every chain on a mesh within
+    one process). Same returns as :func:`run_chains_fused`.
     """
-    devices = mesh.axis_devices(CHAINS_AXIS)
-    n_local = local_count(n_chains, len(devices), "n_chains")
+    ids, devices, n_shards = chain_shards(mesh, pose0.device)
+    n_local = local_count(n_chains, n_shards, "n_chains")
     packs = {}
     for d in devices:
         if d not in packs:
             packs[d] = pack_scene(scene.to(d), cfg)
-    poses = split_rows(_chain_poses(pose0, n_chains, devices[0]), devices)
-    outs = [_run(packs[d], p, seed, iterations, i * n_local)
-            for i, (d, p) in enumerate(zip(devices, poses))]
+    poses = _chain_poses(pose0, n_chains, devices[0])
+    outs = [_run(packs[dev], poses[d * n_local:(d + 1) * n_local].to(dev), seed, iterations,
+                 d * n_local)
+            for d, dev in zip(ids, devices)]
     return tuple(concat(list(parts)) for parts in zip(*outs))

@@ -1,16 +1,30 @@
 """Device meshes and the collectives of the sharded runners.
 
 Counterpart of ``mh_tpu.parallel.mesh``. ``mh_tpu`` runs one program per
-device under ``shard_map`` with one controller; the port keeps that model
-in one process: a :class:`Mesh` is an array of ``torch.device`` with named
-axes, a sharded runner is a Python loop over the shards (each shard's
-tensors live on its device, so its work queues there), and the collectives
-are explicit functions over the list of per-shard tensors, in shard order:
+device under ``shard_map``; the port drives the shards from Python. A
+:class:`Mesh` is an array of ``torch.device`` with named axes; one that
+spans processes also records the process that owns each shard (a mesh
+without ranks is every shard this process's). A runner loops over
+this process's own shards step by step (each shard's tensors live on its
+device, so its work queues there), and the collectives are explicit
+functions over the list of this process's per-shard tensors, in shard
+order. Within one process (every shard local):
 
 - :func:`psum` / :func:`pmax` reduce the partials in global shard order on
   the first shard's device and hand every shard the same bits;
 - :func:`all_gather` is ``torch.cat`` in shard order (``tiled=True``);
 - :func:`ppermute` moves each shard's tensor to its destination's device.
+
+A mesh that spans processes (:func:`~mh_tpu_torch.parallel.multihost.global_chain_mesh`,
+after :func:`~mh_tpu_torch.parallel.multihost.initialize`) runs the same
+collectives over ``torch.distributed``: :func:`psum` and :func:`pmax`
+gather every shard's partial (``dist.all_gather``) and reduce them in the
+same global shard order, so they give one process's bits (never
+``dist.all_reduce``, whose ring order is not shard order);
+:func:`all_gather` joins the gathered parts in shard order; and
+:func:`ppermute` copies the pairs whose two shards live in one process
+and sends the others with ``dist.batch_isend_irecv``. On the ``gloo``
+backend CUDA tensors are staged through host memory explicitly.
 
 A mesh may name one device more than once (``["cpu"] * 8``, ``["cuda:0"] *
 4``): the port's counterpart of the 8 virtual CPU devices ``mh_tpu``'s
@@ -24,19 +38,30 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 Tensor = torch.Tensor
 
 CHAINS_AXIS = "chains"
 
 
+def process_index() -> int:
+    """This process's rank in the default process group (0 without one)."""
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """Devices on named axes: ``devices`` is an object array of
-    ``torch.device`` with one dimension per name in ``axis_names``."""
+    ``torch.device`` with one dimension per name in ``axis_names``;
+    ``processes`` (same shape) the rank of the process that owns each
+    shard, None where every shard is this process's (a mesh within one
+    process; only :func:`~mh_tpu_torch.parallel.multihost.global_chain_mesh`
+    sets ranks)."""
 
     devices: np.ndarray
     axis_names: tuple[str, ...]
+    processes: np.ndarray | None = None
 
     def __post_init__(self):
         devs = np.array(self.devices, dtype=object)
@@ -47,6 +72,12 @@ class Mesh:
         if devs.ndim != len(names) or len(set(names)) != len(names) or devs.size == 0:
             raise ValueError(f"a mesh of shape {devs.shape} needs {devs.ndim} distinct axis "
                              f"names, got {names}")
+        if self.processes is not None:
+            procs = np.asarray(self.processes, dtype=np.int64)
+            if procs.shape != devs.shape:
+                raise ValueError(f"processes of shape {procs.shape} for devices of shape "
+                                 f"{devs.shape}")
+            object.__setattr__(self, "processes", procs)
         object.__setattr__(self, "devices", devs)
         object.__setattr__(self, "axis_names", names)
 
@@ -55,13 +86,48 @@ class Mesh:
         """Axis name -> size, as ``jax.sharding.Mesh.shape``."""
         return dict(zip(self.axis_names, self.devices.shape))
 
+    @property
+    def spans_processes(self) -> bool:
+        """Whether other processes own some of the shards."""
+        return self.processes is not None and bool((self.processes != process_index()).any())
+
+    def _along(self, axis: str, arr: np.ndarray) -> np.ndarray:
+        """``arr``'s entries along ``axis``, at index 0 of every other axis."""
+        lead = np.moveaxis(arr, self.axis_names.index(axis), 0)
+        return lead.reshape(lead.shape[0], -1)[:, 0]
+
+    def axis_processes(self, axis: str) -> list[int]:
+        """The owning process of each shard along ``axis``, in shard order
+        (this process for every shard of a mesh within one process)."""
+        if self.processes is None:
+            return [process_index()] * self.shape.get(axis, 1)
+        if axis not in self.axis_names:
+            return [int(self.processes.flat[0])]
+        return [int(p) for p in self._along(axis, self.processes)]
+
+    def axis_shards(self, axis: str) -> list[int]:
+        """The global indices along ``axis`` of this process's shards."""
+        me = process_index()
+        return [i for i, p in enumerate(self.axis_processes(axis)) if p == me]
+
     def axis_devices(self, axis: str) -> list[torch.device]:
-        """The devices along ``axis`` (at index 0 of every other axis); a
-        mesh without the axis is one shard on its first device."""
+        """The devices of this process's shards along ``axis`` (at index 0
+        of every other axis), in shard order; a mesh without the axis is
+        one shard on its first device."""
         if axis not in self.axis_names:
             return [self.devices.flat[0]]
-        lead = np.moveaxis(self.devices, self.axis_names.index(axis), 0)
-        return list(lead.reshape(lead.shape[0], -1)[:, 0])
+        along = self._along(axis, self.devices)
+        return [along[i] for i in self.axis_shards(axis)]
+
+
+def chain_shards(mesh: Mesh | None, device) -> tuple[list[int], list[torch.device], int]:
+    """``(global indices, devices)`` of this process's shards along the
+    chains axis, and the number of shards on that axis in all processes;
+    ``mesh=None`` is one shard on ``device``."""
+    if mesh is None:
+        return [0], [torch.device(device)], 1
+    return (mesh.axis_shards(CHAINS_AXIS), mesh.axis_devices(CHAINS_AXIS),
+            mesh.shape.get(CHAINS_AXIS, 1))
 
 
 def cuda_devices(n: int | None) -> list[torch.device]:
@@ -109,37 +175,116 @@ def concat(parts: list[Tensor]) -> Tensor:
     return torch.cat([p.to(dev) for p in parts])
 
 
-def _reduce(parts: list[Tensor], op) -> list[Tensor]:
-    acc = parts[0]
-    for p in parts[1:]:
+def _staged(t: Tensor) -> Tensor:
+    """``t`` as the process group's backend takes it: gloo moves CUDA
+    tensors through host memory, NCCL takes them where they are."""
+    return t.cpu() if dist.get_backend() == "gloo" else t
+
+
+def gather_processes(t: Tensor, sizes: list[int] | None = None) -> list[Tensor]:
+    """Every process's ``t`` in process order, each on ``t``'s device.
+
+    The leading sizes may differ (``sizes``: each process's, exchanged
+    where not given): each process pads its ``t`` to the largest, and
+    ``dist.all_gather`` hands every process every padded copy."""
+    world = dist.get_world_size()
+    if sizes is None:
+        sizes = [None] * world
+        dist.all_gather_object(sizes, t.shape[0])
+    mine = t.contiguous()
+    if t.shape[0] < max(sizes):
+        mine = torch.cat([mine, mine.new_zeros((max(sizes) - t.shape[0], *t.shape[1:]))])
+    mine = _staged(mine)
+    parts = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(parts, mine)
+    return [p[:n].to(t.device) for p, n in zip(parts, sizes)]
+
+
+def _spanning(mesh: Mesh | None) -> list[int] | None:
+    """The processes of the chains shards where the mesh spans processes
+    (every process of the group must own a shard), else None."""
+    if mesh is None or not mesh.spans_processes:
+        return None
+    procs = mesh.axis_processes(CHAINS_AXIS)
+    if set(procs) != set(range(dist.get_world_size())):
+        raise ValueError(f"a mesh whose {CHAINS_AXIS} shards live in processes "
+                         f"{sorted(set(procs))} leaves out some of the "
+                         f"{dist.get_world_size()} processes")
+    return procs
+
+
+def _gather_shards(parts: list[Tensor], procs: list[int]) -> list[Tensor]:
+    """Every shard's part, in global shard order, on ``parts[0]``'s device:
+    each process's parts stacked and gathered (:func:`gather_processes`);
+    the mesh says which process holds which shard, so nothing else travels."""
+    world = dist.get_world_size()
+    home = parts[0].device
+    stacks = gather_processes(torch.stack([p.to(home) for p in parts]),
+                              [procs.count(r) for r in range(world)])
+    seen = [0] * world
+    out = []
+    for r in procs:
+        out.append(stacks[r][seen[r]])
+        seen[r] += 1
+    return out
+
+
+def _reduce(parts: list[Tensor], op, mesh: Mesh | None) -> list[Tensor]:
+    procs = _spanning(mesh)
+    every = parts if procs is None else _gather_shards(parts, procs)
+    acc = every[0]
+    for p in every[1:]:
         acc = op(acc, p.to(acc.device))
     return [acc.to(p.device) for p in parts]
 
 
-def psum(parts: list[Tensor]) -> list[Tensor]:
-    """The sum over shards, added in shard order on the first shard's
-    device; every shard gets the same bits (one shard: its own tensor)."""
-    return _reduce(parts, torch.add)
+def psum(parts: list[Tensor], mesh: Mesh | None = None) -> list[Tensor]:
+    """The sum over ``mesh``'s chains shards, added in global shard order;
+    every shard of this process gets the same bits (one shard: its own
+    tensor). ``parts``: this process's shards' tensors in shard order;
+    without a mesh, or on a mesh within this process, every shard's."""
+    return _reduce(parts, torch.add, mesh)
 
 
-def pmax(parts: list[Tensor]) -> list[Tensor]:
-    """The maximum over shards, on every shard."""
-    return _reduce(parts, torch.maximum)
+def pmax(parts: list[Tensor], mesh: Mesh | None = None) -> list[Tensor]:
+    """The maximum over shards, on every shard (``parts`` as :func:`psum`)."""
+    return _reduce(parts, torch.maximum, mesh)
 
 
-def all_gather(parts: list[Tensor]) -> list[Tensor]:
-    """Every shard's tensor joined along dim 0 in shard order
-    (``all_gather(tiled=True)``), on every shard."""
-    whole = concat(parts)
+def all_gather(parts: list[Tensor], mesh: Mesh | None = None) -> list[Tensor]:
+    """Every shard's tensor joined along dim 0 in global shard order
+    (``all_gather(tiled=True)``), on every shard of this process."""
+    procs = _spanning(mesh)
+    whole = concat(parts if procs is None else _gather_shards(parts, procs))
     return [whole.to(p.device) for p in parts]
 
 
-def ppermute(parts: list[Tensor], perm) -> list[Tensor]:
-    """``perm``: (source, destination) shard pairs; each destination gets
-    its source's tensor on its own device, a shard no pair names zeros."""
+def ppermute(parts: list[Tensor], perm, mesh: Mesh | None = None) -> list[Tensor]:
+    """``perm``: (source, destination) pairs of global shard indices; each
+    destination of this process gets its source's tensor on its own
+    device, a shard no pair names zeros. Pairs within this process are
+    copies; the others go through ``dist.batch_isend_irecv``, each process
+    posting its sends and receives in ``perm``'s order, so the messages
+    between two processes match one for one."""
+    procs = _spanning(mesh)
+    shards = range(len(parts)) if procs is None else mesh.axis_shards(CHAINS_AXIS)
+    at = {g: j for j, g in enumerate(shards)}  # global shard -> position in parts
     out = [torch.zeros_like(p) for p in parts]
+    ops, received = [], []
     for src, dst in perm:
-        out[dst] = parts[src].to(parts[dst].device)
+        if src in at and dst in at:
+            out[at[dst]] = parts[at[src]].to(parts[at[dst]].device)
+        elif src in at:
+            ops.append(dist.P2POp(dist.isend, _staged(parts[at[src]]).contiguous(), procs[dst]))
+        elif dst in at:
+            buf = _staged(torch.empty_like(parts[at[dst]]))
+            ops.append(dist.P2POp(dist.irecv, buf, procs[src]))
+            received.append((at[dst], buf))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for j, buf in received:
+        out[j] = buf.to(parts[j].device)
     return out
 
 

@@ -10,7 +10,8 @@ The O(N) terms are computed once per chain shard, on its first objs
 shard's device. This is the path past the fused kernel's shared-memory
 limit (2,582 objects with 2 clearances): no shard holds a chain's whole
 N x N matrices. Results equal :func:`~mh_tpu_torch.ops.costs.cost_terms`
-up to the order of the row sums.
+up to the order of the row sums. It runs in one process: a mesh that
+spans processes raises.
 """
 
 from __future__ import annotations
@@ -121,10 +122,17 @@ class RowShards:
                              symmetry=sym_w, clearance=clr, off_limits=off_w, surface_area=sa)
 
 
+def _one_process(mesh: Mesh) -> Mesh:
+    if mesh.spans_processes:
+        raise ValueError("the row-sharded objective runs in one process; this mesh spans "
+                         "processes (split chains across processes with run_chains_sharded)")
+    return mesh
+
+
 def _grid(mesh: Mesh) -> np.ndarray:
     """The mesh's devices as [chains, objs]; a mesh of the objs axis alone
     is one chain shard."""
-    devs, names = mesh.devices, mesh.axis_names
+    devs, names = _one_process(mesh).devices, mesh.axis_names
     if CHAINS_AXIS not in names:
         devs, names = devs[None], (CHAINS_AXIS, *names)
     if set(names) != {CHAINS_AXIS, OBJS_AXIS} or len(names) != 2:
@@ -138,7 +146,7 @@ def cost_terms_sharded(pose: Tensor, scene: Scene, mesh: Mesh,
     row-sharded over ``mesh``'s objs axis (the off-limits term evaluated in
     FIXED, as ``cost_terms`` does). Raises where the axis does not divide
     the padded object count. The result lies on the first shard's device."""
-    shards = RowShards(scene, mode, mesh.axis_devices(OBJS_AXIS), with_off=True)
+    shards = RowShards(scene, mode, _one_process(mesh).axis_devices(OBJS_AXIS), with_off=True)
     return shards(pose.to(shards.devices[0]))
 
 
@@ -180,6 +188,7 @@ def run_chains_objsharded(key: Tensor, pose0: Tensor, scene: Scene, cfg: Sampler
     steps = shard_steps(scene, cfg, list(grid[:, 0]))
     with_off = not offlimits_unused(scene, cfg.mode)
     cost_fns = [RowShards(scene, cfg.mode, list(row), with_off) for row in grid]
-    states = shard_starts(key, pose0, steps, n_local, cost_fns=cost_fns)
+    states = shard_starts(key, pose0, steps, n_local, list(range(len(steps))),
+                          cost_fns=cost_fns)
     states = advance(steps, states, cfg.iterations, cost_fns=cost_fns)
     return concat_states([st.finalize(s) for st, s in zip(steps, states)])

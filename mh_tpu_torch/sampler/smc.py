@@ -6,7 +6,8 @@ log-evidence), resamples systematically when the effective sample size
 drops below ``ess_threshold * n_particles``, and mutates with MH steps at
 the new temperature.
 
-As in ``mh_tpu`` the particles are split over the mesh's chains axis: the
+As in ``mh_tpu`` the particles are split over the mesh's chains axis (each
+process steps its own shards of a mesh that spans processes): the
 weights' maximum and sums go through
 :func:`~mh_tpu_torch.parallel.mesh.pmax` / :func:`~mh_tpu_torch.parallel.mesh.psum`,
 and a resample gathers every shard's poses, cost vectors and log-weights
@@ -30,11 +31,11 @@ import torch
 
 from mh_tpu_torch.config import SamplerConfig
 from mh_tpu_torch.models.scene import Scene
-from mh_tpu_torch.parallel.mesh import Mesh, all_gather, local_count, pmax, psum
+from mh_tpu_torch.parallel.mesh import Mesh, all_gather, chain_shards, local_count, pmax, psum
 from mh_tpu_torch.parallel.sharded import advance, concat, concat_states, shard_steps
 from mh_tpu_torch.sampler import prng
 from mh_tpu_torch.sampler.mh import chain_starts
-from mh_tpu_torch.sampler.tempering import chain_devices, with_rows
+from mh_tpu_torch.sampler.tempering import with_rows
 
 Tensor = torch.Tensor
 
@@ -97,9 +98,11 @@ def run_smc(
     Returns ``(states [n_particles, ...], diagnostics)``: a dict of per-stage
     ``ess`` (f32[n_stages]), ``resampled`` (bool[n_stages]) and ``betas``
     (f32[n_stages], the post-stage inverse temperature), the final
-    ``log_weights`` and the ``log_evidence`` estimate, on the first shard's
-    device. Poses are bitwise the same on any number of shards; the sums in
-    shard order move ESS and evidence by float rounding only.
+    ``log_weights`` and the ``log_evidence`` estimate, on this process's
+    first shard's device (``states`` and ``log_weights`` this process's
+    particles). Poses are bitwise the same on any number of shards; the
+    sums in shard order move ESS and evidence by float rounding only, and
+    not at all between processes on the same shards.
 
     ``adaptive``: each increment is bisected (26 halvings) so the
     post-increment ESS lands at ``target_ess * n_particles``; ``n_stages``
@@ -110,17 +113,17 @@ def run_smc(
     """
     if init not in ("pose0", "prior"):
         raise ValueError(f"init={init!r} (use 'pose0' or 'prior')")
-    devices = chain_devices(mesh, scene)
+    ids, devices, n_shards = chain_shards(mesh, scene.device)
     n = n_particles
-    n_local = local_count(n, len(devices), "n_particles")
+    n_local = local_count(n, n_shards, "n_particles")
     home = devices[0]
     beta_sched = _schedule(cfg.beta, n_stages, home)
     steps = shard_steps(scene, cfg, devices)
     states = []
-    for d, st in enumerate(steps):
+    for d, st in zip(ids, steps):
         p0, keys = chain_starts(key, pose0, st.scene, n_local, d * n_local)
         if init == "prior":
-            gids = torch.arange(d * n_local, (d + 1) * n_local, device=devices[d])
+            gids = torch.arange(d * n_local, (d + 1) * n_local, device=st.scene.device)
             p0 = _prior_starts(key, p0, st.scene, cfg, gids)
         states.append(st.init(p0, keys))
 
@@ -131,10 +134,10 @@ def run_smc(
     k_rs = [prng.fold_in(key.to(d), 0x5C) for d in devices]
 
     def global_ess(log_w):
-        m = pmax([torch.amax(lw) for lw in log_w])
+        m = pmax([torch.amax(lw) for lw in log_w], mesh)
         shifted = [torch.exp(lw - mm) for lw, mm in zip(log_w, m)]
-        z1 = psum([torch.sum(s) for s in shifted])[0]
-        z2 = psum([torch.sum(torch.square(s)) for s in shifted])[0]
+        z1 = psum([torch.sum(s) for s in shifted], mesh)[0]
+        z2 = psum([torch.sum(torch.square(s)) for s in shifted], mesh)[0]
         return torch.square(z1) / torch.clamp_min(z2, 1e-30), m[0], z1
 
     def on_shards(v):
@@ -176,15 +179,16 @@ def run_smc(
         need = ess < ess_threshold * n
         if adaptive:
             need = need | ~full_ok
-        gathered = zip(all_gather([s.pose for s in states]),
-                       all_gather([s.costs.as_vector() for s in states]), all_gather(log_w))
-        for d, (pose_all, cvec_all, lw_all) in enumerate(gathered):
-            idx = systematic_resample_indices(prng.fold_in(k_rs[d], t), lw_all, n)
+        gathered = zip(ids, all_gather([s.pose for s in states], mesh),
+                       all_gather([s.costs.as_vector() for s in states], mesh),
+                       all_gather(log_w, mesh))
+        for j, (d, pose_all, cvec_all, lw_all) in enumerate(gathered):
+            idx = systematic_resample_indices(prng.fold_in(k_rs[j], t), lw_all, n)
             mine = idx[d * n_local:(d + 1) * n_local]
-            need_d = need.to(devices[d])
-            states[d] = with_rows(states[d], (pose_all[mine], cvec_all[mine]),
-                                  need_d.expand(n_local))
-            log_w[d] = torch.where(need_d, 0.0, log_w[d])
+            need_j = need.to(devices[j])
+            states[j] = with_rows(states[j], (pose_all[mine], cvec_all[mine]),
+                                  need_j.expand(n_local))
+            log_w[j] = torch.where(need_j, 0.0, log_w[j])
 
         # mutate: MH steps at the new inverse temperature
         states = advance(steps, states, mutate_steps, betas=on_shards(beta_next))

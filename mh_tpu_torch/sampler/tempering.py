@@ -16,6 +16,9 @@ decisions use ``mh_tpu``'s keys, folded from the global pair index
 pair across a boundary decide alike; each accepted pair is counted once, by
 its lower member, and the counts and the ladder's per-pair indicators are
 summed over the shards with :func:`~mh_tpu_torch.parallel.mesh.psum`.
+On a mesh that spans processes each process steps its own shards, the
+boundary replicas cross processes through ``ppermute`` and the sums
+through ``psum``, so the run is bitwise that of one process.
 ``mesh=None`` is one shard on the scene's device.
 """
 
@@ -29,17 +32,12 @@ import torch
 from mh_tpu_torch.config import SamplerConfig
 from mh_tpu_torch.models.scene import Scene
 from mh_tpu_torch.ops.costs import CostBreakdown
-from mh_tpu_torch.parallel.mesh import CHAINS_AXIS, Mesh, local_count, ppermute, psum
+from mh_tpu_torch.parallel.mesh import Mesh, chain_shards, local_count, ppermute, psum
 from mh_tpu_torch.parallel.sharded import advance, concat_states, shard_starts, shard_steps
 from mh_tpu_torch.sampler import prng
 from mh_tpu_torch.sampler.mh import MHState
 
 Tensor = torch.Tensor
-
-
-def chain_devices(mesh: Mesh | None, scene: Scene) -> list[torch.device]:
-    """The shards' devices: ``mesh``'s chains axis, or the scene's device."""
-    return [scene.device] if mesh is None else mesh.axis_devices(CHAINS_AXIS)
 
 
 def geometric_ladder(n: int, beta_min: float, beta_max: float, device=None) -> Tensor:
@@ -82,26 +80,27 @@ def run_tempered(
 
     Returns ``(states [n_replicas, ...], swap_rate_trace f32[rounds])``;
     with ``adapt_ladder=True``, ``(states, swap_rate_trace, betas f32[K])``,
-    on the first shard's device. The target-temperature sample is the last
-    replica. Bitwise the same on any number of shards.
+    on this process's first shard's device, ``states`` this process's
+    replicas. The target-temperature sample is the last replica. Bitwise
+    the same on any number of shards and processes.
 
     ``adapt_ladder``: stochastic-approximation ladder adaptation
     (Miasojedow-Moulines-Vihola, arXiv:1205.1076): the top beta stays
     pinned and each log-beta gap drifts by ``gamma_t * (accept_k -
     target_swap)``, ``gamma_t = 0.5 / (1 + t)^0.6``.
     """
-    devices = chain_devices(mesh, scene)
-    n_dev, k_rep = len(devices), n_replicas
+    ids, devices, n_dev = chain_shards(mesh, scene.device)
+    k_rep = n_replicas
     n_local = local_count(k_rep, n_dev, "n_replicas")
     home = devices[0]
     if betas is None:
         betas = geometric_ladder(k_rep, 0.1, cfg.beta)
     betas = torch.as_tensor(betas, dtype=torch.float32).to(home)
     steps = shard_steps(scene, cfg, devices)
-    states = shard_starts(key, pose0, steps, n_local)
+    states = shard_starts(key, pose0, steps, n_local, ids)
 
     lids = [torch.arange(n_local, device=d) for d in devices]
-    gids = [d * n_local + lid for d, lid in enumerate(lids)]
+    gids = [d * n_local + lid for d, lid in zip(ids, lids)]
     pair_keys = [prng.fold_in(key.to(d), 0x7E3) for d in devices]
     right = [(i, (i + 1) % n_dev) for i in range(n_dev)]
     left = [(i, (i - 1) % n_dev) for i in range(n_dev)]
@@ -126,8 +125,8 @@ def run_tempered(
         # boundary transport: my last replica -> right neighbour, my first
         # replica -> left neighbour (cyclic; validity by global id)
         rows = [(s.pose, s.costs.as_vector()) for s in states]
-        from_left = [ppermute([r[i][-1:] for r in rows], right) for i in (0, 1)]
-        from_right = [ppermute([r[i][:1] for r in rows], left) for i in (0, 1)]
+        from_left = [ppermute([r[i][-1:] for r in rows], right, mesh) for i in (0, 1)]
+        from_right = [ppermute([r[i][:1] for r in rows], left, mesh) for i in (0, 1)]
         swaps, attempts, acc_vecs, att_vecs = [], [], [], []
         for d, (s, (pose, cvec), g, lid) in enumerate(zip(states, rows, gids, lids)):
             # extended block: index l + 1 == local replica l
@@ -153,10 +152,11 @@ def run_tempered(
                 pair_oh = (g[:, None] == torch.arange(k_rep - 1, device=g.device)).to(torch.float32)
                 acc_vecs.append(torch.sum(pair_oh * swapped[:, None], 0))
                 att_vecs.append(torch.sum(pair_oh * own.to(torch.float32)[:, None], 0))
-        rates.append(psum(swaps)[0] / torch.clamp_min(psum(attempts)[0], 1.0))
+        rates.append(psum(swaps, mesh)[0] / torch.clamp_min(psum(attempts, mesh)[0], 1.0))
         if adapt_ladder:
             # Robbins-Monro on the log gaps; pair k is (k, k+1), counted at k
-            rho = rho + gammas[rnd] * (psum(acc_vecs)[0] - target_swap * psum(att_vecs)[0])
+            rho = rho + gammas[rnd] * (psum(acc_vecs, mesh)[0]
+                                       - target_swap * psum(att_vecs, mesh)[0])
 
     states = concat_states([st.finalize(s) for st, s in zip(steps, states)])
     swap_rates = torch.stack(rates) if rates else torch.zeros(0, device=home)

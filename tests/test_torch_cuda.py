@@ -324,3 +324,47 @@ def test_kernels_launch_on_the_tensors_card(cuda):
         assert torch.equal(g.cpu(), w.cpu()) and torch.equal(b.cpu(), w.cpu())
     assert torch.equal(uni.cpu(), TF.uniform_block(7, 3, 40, 64))
     assert hits == TP.pi_hits_reference(0, 1 << 22)
+
+
+def test_checkpoint_on_card_resumes_bitwise(cuda, tmp_path):
+    """A CUDA state saved, restored onto the card (its template's device),
+    and continued: bitwise the uninterrupted run."""
+    from mh_tpu_torch.sampler import prng
+    from mh_tpu_torch.sampler.mh import continue_chains, run_chains
+    from mh_tpu_torch.utils.checkpoint import restore_state, save_state
+
+    spec = mh_tpu_torch.demo_scene(32)
+    scene, p0 = spec.build(device=cuda), spec.initial_pose(device=cuda)
+    cfg = mh_tpu_torch.SamplerConfig(iterations=20, n_chains=64)
+    mid, _ = run_chains(prng.key(3, cuda), p0, scene, cfg)
+    path = str(tmp_path / "ck")
+    save_state(path, mid)
+    restored = restore_state(path, mid.map(torch.zeros_like))
+    assert restored.pose.device.type == "cuda" and torch.equal(restored.key, mid.key)
+    got = continue_chains(restored, scene, cfg)
+    want = continue_chains(mid, scene, cfg)
+    whole, _ = run_chains(prng.key(3, cuda), p0, scene,
+                          dataclasses.replace(cfg, iterations=40))
+    for s in (want, whole):
+        assert torch.equal(got.pose, s.pose) and torch.equal(got.n_accept, s.n_accept)
+    assert (got.n_accept > 0).any()
+
+
+def test_summarize_chains_on_card_matches_cpu(cuda):
+    """ESS, R-hat, mean and std of 1,024 chains x 1,000 steps on the card
+    against the CPU, rtol 1e-4 (float32 sums in another order)."""
+    import numpy as np
+
+    from mh_tpu_torch.utils.metrics import summarize_chains
+
+    rng = np.random.default_rng(0)
+    noise = rng.standard_normal((1024, 1000)).astype(np.float32)
+    phi = np.linspace(0.0, 0.95, 1024, dtype=np.float32)
+    x = np.zeros_like(noise)
+    for t in range(1, 1000):
+        x[:, t] = phi * x[:, t - 1] + noise[:, t]
+    cpu = summarize_chains(torch.as_tensor(x))
+    got = summarize_chains(torch.as_tensor(x, device=cuda))
+    for k, v in cpu.items():
+        assert got[k].device.type == "cuda"
+        torch.testing.assert_close(got[k].cpu(), v, rtol=1e-4, atol=1e-6)
