@@ -127,12 +127,34 @@ non-zero):
 17. profile: ``torch.profiler`` over 10 steps of the torch engine at 100
    objects x 1024 chains, one move and M = K = 64, eager and as a CUDA
    graph: kernels per step, device-busy share of the wall time, top
-   kernels.
+   kernels;
+18. gradient: the gradient samplers (RW-MH, MALA, HMC, NUTS, mean-field
+   VI) on the layout log-density, FIXED with positive weights, beta 2;
+   they launch no hand-written kernel (their gradients are autograd's).
+   First ``demo_scene(32)`` x 64 chains on CUDA against the CPU (RW and
+   MALA 40 draws, HMC 20 and NUTS 10 at max_depth 5, both at the start
+   step size with no warmup, whose unstable first steps make the step
+   size chaotic; VI 50 steps):
+   at most 2 of 64 chains may part (accept count, depth or a sample more
+   than 1e-4 away), the VI trace within rtol 1e-3; the dual-averaging
+   update from the same inputs must be bitwise on both devices, and one
+   adapting HMC and one adapting NUTS transition from the same state
+   (draw 4, a nonzero ``h_avg``) must give equal accepts and depths and
+   the dual-averaging fields within rtol 1e-4; then ``demo_scene(100)``
+   (D = 300) x 1024 chains on the card: RW and MALA 200 draws, HMC 50 + 50
+   with 8 leapfrog steps, NUTS max_depth 6 at 10 + 10, VI 500 steps with 8
+   draws each. Samples and log-probabilities must be finite, RW, MALA and
+   HMC must accept at a mean rate in (0, 1), MALA, HMC and NUTS must end
+   with a best log-probability at or above the start's, and VI's ELBO must
+   rise. It prints the CUDA-event ms per gradient evaluation, per forward
+   and per normal draw of the chains' momenta at 100 x 1024, the ms per
+   draw of each sampler and NUTS's mean depth.
 
-Two phases run only when named: ``slab_width`` (weighted FIXED by slab
-width) and ``kernel_variants`` (the off-limits update against the rows
+Three phases run only when named: ``slab_width`` (weighted FIXED by slab
+width), ``kernel_variants`` (the off-limits update against the rows
 from scratch by object count, and the phase-profile build's cycles per
-warp and step phase).
+warp and step phase) and ``gradient_warmup`` (the chains HMC and NUTS
+part between the card and the CPU after 0, 2, 5 and 20 warmup draws).
 
 Then one JSON line describing the kernels and, last, the device line.
 Without a CUDA device, or without the package beside this script, it
@@ -168,11 +190,12 @@ BLOCK = dict(n_moves_per_step=64, accept_draws=64)  # BASELINE config 3, layout_
 SWEEP_OBJECTS = (32, 100, 256, 512)
 PHASES = ("rng", "kernel_vs_plain", "main_path", "pi", "cli", "prng", "torch_engine_vs_cpu",
           "main_path_torch", "tempering_smc", "sharded", "multiprocess", "recovery", "metrics",
-          "time", "profile")
+          "time", "profile", "gradient")
 # named only: weighted FIXED ms/step by slab width (the kernel takes the
-# width at launch), the measurement behind fused_mh.off_slab_width; and the
-# MH kernel's variant builds (kernel_variants below)
-OPTIONAL_PHASES = ("slab_width", "kernel_variants")
+# width at launch), the measurement behind fused_mh.off_slab_width; the
+# MH kernel's variant builds (kernel_variants below); and the chains HMC
+# and NUTS part between the card and the CPU by warmup length
+OPTIONAL_PHASES = ("slab_width", "kernel_variants", "gradient_warmup")
 WIDTHS = {100: (8, 16, 32), 256: (16, 32, 64), 512: (32, 64, 128)}
 # the step phases of csrc/fused_mh.cu's MH_PHASE_PROFILE build, in order
 STEP_PHASES = ("move", "barrier_1", "lanes", "partials_entities", "off_update", "barrier_2",
@@ -791,6 +814,206 @@ def sass_per_sample(lib: Path, kernel: str) -> dict:
         raise AssertionError(f"no sample loop found in the SASS of {kernel}")
     return dict(loop_instructions=best[1], samples_per_iteration=best[0],
                 instructions_per_sample=best[1] / best[0])
+
+
+# the example's proper layout target: FIXED mode, positive weights
+# (examples/advanced_sampling.py:104-110), at beta 2
+SANE_WEIGHTS = dict(w_pairwise=2.0, w_visual_balance=1.0, w_focal=2.0, w_symmetry=2.0,
+                    w_clearance=2.0, w_offlimits=1.0, w_surface_area=2.0)
+
+
+def gradient_target(n: int, d):
+    """The layout log-density of ``demo_scene(n)`` on device ``d`` (FIXED,
+    positive weights, beta 2) and its start ``theta``."""
+    from mh_tpu_torch import CostMode, demo_scene
+    from mh_tpu_torch.sampler import generic as G
+
+    spec = dataclasses.replace(demo_scene(n), **SANE_WEIGHTS)
+    pose0 = spec.initial_pose(device=d)
+    fn = G.layout_logdensity(spec.build(device=d), pose0, 2.0, CostMode.FIXED)
+    return fn, G.theta_from_pose(pose0)
+
+
+def gradient_runs(chains: int, cuts: dict) -> dict:
+    """Sampler name -> (call on a log-density, start and device; number of
+    draws). ``cuts``: RW and MALA draws, HMC (warmup, draws), NUTS
+    (max_depth, warmup, draws)."""
+    from mh_tpu_torch.sampler import hmc_sample, mala_sample, nuts_sample, prng, rw_metropolis
+
+    return {
+        "rw": (lambda fn, t, d: rw_metropolis(prng.key(1), fn, t, cuts["rw"], chains,
+                                              step_size=0.02, device=d), cuts["rw"]),
+        "mala": (lambda fn, t, d: mala_sample(prng.key(2), fn, t, cuts["mala"], chains,
+                                              step_size=0.02, device=d), cuts["mala"]),
+        "hmc": (lambda fn, t, d: hmc_sample(prng.key(3), fn, t, cuts["hmc"][1], cuts["hmc"][0],
+                                            n_leapfrog=8, step_size=0.01, n_chains=chains,
+                                            device=d), sum(cuts["hmc"])),
+        "nuts": (lambda fn, t, d: nuts_sample(prng.key(4), fn, t, cuts["nuts"][2],
+                                              cuts["nuts"][1], max_depth=cuts["nuts"][0],
+                                              step_size=0.01, n_chains=chains, device=d),
+                 sum(cuts["nuts"][1:])),
+    }
+
+
+def chains_parted_vs_cpu(call, fns, dev):
+    """Run ``call`` on the card and on the CPU (``fns``: the target on
+    each): the chains whose accept count (NUTS: summed depth) or any sample
+    differs by more than POSE_ATOL, and each chain's largest gap."""
+    import numpy as np
+    import torch
+
+    out = []
+    for d, (fn, theta0) in zip((dev, torch.device("cpu")), fns):
+        samples, final = call(fn, theta0, d)
+        count = final.sum_depth if hasattr(final, "sum_depth") else final.n_accept
+        out.append((samples.cpu().numpy(), count.cpu().numpy()))
+    gap = np.abs(out[0][0] - out[1][0]).max(axis=(1, 2))
+    return (gap > POSE_ATOL) | (out[0][1] != out[1][1]), gap
+
+
+def gradient_warmup_phase(dev, smi: str) -> None:
+    """Phase gradient_warmup (named only; checks nothing): the chains HMC
+    and NUTS part between the card and the CPU at 32 objects x 64 chains
+    after 0, 2, 5 and 20 warmup draws, the measurement behind phase
+    gradient comparing whole runs without warmup."""
+    import torch
+
+    fns = [gradient_target(32, d) for d in (dev, torch.device("cpu"))]
+    for w in (0, 2, 5, 20):
+        cut = dict(rw=0, mala=0, hmc=(w, 20), nuts=(5, w, 10))
+        for name in ("hmc", "nuts"):
+            call, draws = gradient_runs(64, cut)[name]
+            parted, _ = chains_parted_vs_cpu(call, fns, dev)
+            say("gradient_warmup", sampler=name, objs=32, chains=64, warmup=w, draws=draws,
+                chains_parted=int(parted.sum()), card=smi)
+
+
+def gradient_phase(dev, smi: str) -> None:
+    """Phase gradient (docstring item 18): the gradient samplers on the
+    card against the CPU at 32 objects x 64 chains, then at full width on
+    the card."""
+    import numpy as np
+    import torch
+
+    from mh_tpu_torch.sampler import generic as G
+    from mh_tpu_torch.sampler import meanfield_vi, prng
+    from mh_tpu_torch.sampler.hmc import dual_averaging, hmc_state_from_numpy, hmc_step
+    from mh_tpu_torch.sampler.nuts import nuts_state_from_numpy, nuts_step
+
+    cpu = torch.device("cpu")
+    # card against the CPU: the same draws, the CPU's transcendentals and
+    # sums round apart by ulps, so a chain may part where an ulp flips an
+    # accept or a U-turn. HMC and NUTS run at the start step size with no
+    # warmup: the warmup's first steps try step sizes up to 10x the start,
+    # where the leapfrog is unstable, and feed the chaotic energy error
+    # back into the step size (PERF.md, PR 9). One adapting transition
+    # from a shared state below holds the step-size update itself.
+    fns = [gradient_target(32, d) for d in (dev, cpu)]
+    small = dict(rw=40, mala=40, hmc=(0, 20), nuts=(5, 0, 10))
+    for name, (call, draws) in gradient_runs(64, small).items():
+        parted, gap = chains_parted_vs_cpu(call, fns, dev)
+        say("gradient", case=f"{name}_vs_cpu", objs=32, chains=64, draws=draws,
+            chains_parted=int(parted.sum()), max_gap_kept=float(gap[~parted].max(initial=0.0)))
+        if parted.sum() > MAX_DIVERGENT_CHAINS:
+            raise AssertionError(f"gradient {name}: {int(parted.sum())} of 64 chains part "
+                                 "between CUDA and the CPU")
+
+    # dual averaging on the card against the CPU: the update alone, from
+    # the same inputs, is bitwise (each multiply-add rounded once through
+    # float64); then one adapting HMC and NUTS transition (draw 4, h_avg in
+    # [0.3, 0.6]) from the same bits on both devices. There the energies
+    # are float32 sums near -720, whose ulp is 6e-5, and the devices sum in
+    # other orders, so an accept probability may differ by ~1e-4 and the
+    # update carries it into log_eps times sqrt(5) eta / gamma = 3: the
+    # dual-averaging fields are held within rtol 1e-4 (a wrong update
+    # moves log_eps by O(1)), accepts and depths equal
+    rng = np.random.default_rng(9)
+    probs = np.concatenate([rng.uniform(0.0, 1.0, 62), [0.0, 1.0]]).astype(np.float32)
+    avg, h = rng.normal(-4.0, 1.0, 64), rng.uniform(-0.6, 0.6, 64)
+    upd = [[t.cpu() for t in dual_averaging(
+        4, *(torch.as_tensor(a, dtype=torch.float32, device=d) for a in (probs, avg, h)),
+        0.8, 10.0, 0.05, 0.75)] for d in (dev, cpu)]
+    if not all(torch.equal(a, b) for a, b in zip(*upd)):
+        raise AssertionError("gradient: dual_averaging differs between CUDA and the CPU")
+    fn_cpu, theta_cpu = fns[1]
+    theta = theta_cpu.numpy() + rng.normal(0.0, 0.02, (64, theta_cpu.numel()))
+    theta = theta.astype(np.float32)
+    lp, grad = G.value_and_grad(fn_cpu, torch.from_numpy(theta))
+    zeros = np.zeros(64, np.int32)
+    fields = dict(theta=theta, logprob=lp.numpy(), grad=grad.numpy(),
+                  log_eps=np.full(64, np.log(np.float32(0.01)), np.float32),
+                  log_eps_avg=np.full(64, np.log(np.float32(0.012)), np.float32),
+                  h_avg=rng.uniform(0.3, 0.6, 64).astype(np.float32))
+    dual = ("log_eps", "log_eps_avg", "h_avg")
+    for name, count in (("hmc", "n_accept"), ("nuts", "sum_depth")):
+        outs = []
+        for d, (fn, _) in zip((dev, cpu), fns):
+            keys = prng.fold_in(prng.key(8, d), torch.arange(64, device=d))
+            if name == "hmc":
+                st = hmc_state_from_numpy(dict(fields, n_accept=zeros), device=d)
+                st = hmc_step(keys, st, fn, 8, 4, adapt=True)
+            else:
+                st = nuts_state_from_numpy(dict(fields, n_divergent=zeros, sum_depth=zeros),
+                                           device=d)
+                st = nuts_step(keys, st, fn, 5, 4, adapt=True)
+            outs.append({k: getattr(st, k).cpu() for k in dual + (count,)})
+        say("gradient", case=f"{name}_adapt_step_vs_cpu", objs=32, chains=64, step=4,
+            **{f"max_rel_gap_{k}": float(((outs[0][k] - outs[1][k]).abs()
+                                          / outs[1][k].abs()).max()) for k in dual},
+            **{f"mean_{count}": float(outs[0][count].float().mean())})
+        for k in dual:
+            torch.testing.assert_close(outs[0][k], outs[1][k], rtol=1e-4, atol=0.0)
+        if not torch.equal(outs[0][count], outs[1][count]):
+            raise AssertionError(f"gradient {name}: the adapting transition's {count} "
+                                 "differs between CUDA and the CPU")
+
+    vi = [[t.cpu() for t in meanfield_vi(prng.key(5), fn, theta0, n_steps=50, device=d)]
+          for d, (fn, theta0) in zip((dev, cpu), fns)]
+    for a, b in zip(*vi):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+    say("gradient", case="vi_vs_cpu", objs=32, steps=50,
+        max_rel_gap_trace=float(((vi[0][2] - vi[1][2]).abs() / vi[1][2].abs()).max()))
+
+    # full width on the card: 100 objects (D = 300) x 1024 chains
+    fn, theta0 = gradient_target(100, dev)
+    chains = 1024
+    start = theta0.expand(chains, -1).contiguous()
+    lp0 = float(fn(theta0))
+    grad_ms = events_ms(lambda: G.value_and_grad(fn, start), 5)
+    fwd_ms = events_ms(lambda: fn(start), 5)
+    keys = prng.fold_in(prng.key(7, dev), torch.arange(chains, device=dev))
+    normal_ms = events_ms(lambda: prng.normal(keys, (int(theta0.numel()),)), 5)
+    say("gradient", case="value_and_grad", objs=100, chains=chains, dim=int(theta0.numel()),
+        grad_ms=grad_ms, forward_ms=fwd_ms, normal_ms=normal_ms, card=smi)
+    full = dict(rw=200, mala=200, hmc=(50, 50), nuts=(6, 10, 10))
+    for name, (call, draws) in gradient_runs(chains, full).items():
+        (samples, final), ms = timed(lambda: call(fn, theta0, dev))
+        if not (torch.isfinite(samples).all() and torch.isfinite(final.logprob).all()):
+            raise AssertionError(f"gradient {name}: non-finite samples or log-probabilities")
+        row = dict(case=name, objs=100, chains=chains, draws=draws, ms=ms, ms_per_draw=ms / draws,
+                   start_logprob=lp0, best_logprob=float(final.logprob.max()),
+                   mean_logprob=float(final.logprob.mean()))
+        if name in ("rw", "mala", "hmc"):
+            kept = full["hmc"][1] if name == "hmc" else draws
+            rate = float(final.n_accept.float().mean()) / kept
+            row["mean_accept"] = rate
+            if not 0.0 < rate < 1.0:
+                raise AssertionError(f"gradient {name}: mean accept rate {rate}")
+        if name == "nuts":
+            row["mean_depth"] = float(final.sum_depth.float().mean()) / full["nuts"][2]
+            row["divergent"] = int(final.n_divergent.sum())
+        if name != "rw" and row["best_logprob"] < lp0:
+            raise AssertionError(f"gradient {name}: best log-probability {row['best_logprob']} "
+                                 f"below the start's {lp0}")
+        say("gradient", **row, card=smi)
+    (mu, sigma, trace), ms = timed(lambda: meanfield_vi(prng.key(6), fn, theta0, n_steps=500,
+                                                        n_mc=8, device=dev))
+    trace = trace.cpu()
+    first, last = float(trace[:50].mean()), float(trace[-50:].mean())
+    if not (torch.isfinite(trace).all() and torch.isfinite(mu).all() and last > first):
+        raise AssertionError(f"gradient vi: the ELBO went from {first} to {last}")
+    say("gradient", case="vi", objs=100, steps=500, n_mc=8, ms=ms, ms_per_step=ms / 500,
+        elbo_first_50=first, elbo_last_50=last, sigma_mean=float(sigma.mean()), card=smi)
 
 
 def run_main_path(name, spec, cfg, device, counters):
@@ -1746,6 +1969,11 @@ def main(argv=None) -> int:
                 say("profile", card=smi, objs=100, chains=kcfg.n_chains, path=name,
                     mode="graph" if graph else "eager",
                     **profile_steps(scene, pose100, kcfg, graph, steps=10))
+
+    if "gradient" in phases:
+        gradient_phase(dev, smi)
+    if "gradient_warmup" in phases:
+        gradient_warmup_phase(dev, smi)
 
     if "jax" in sys.modules or "mh_tpu" in sys.modules:
         raise AssertionError("the port imported JAX or mh_tpu")

@@ -80,7 +80,7 @@ def pair_wise_angle_costs(pose: Tensor, scene: Scene, mode: CostMode) -> Tensor:
     th = geo.theta(sx, sy, tx, ty, trot, pi)
 
     amin, amax = scene.ang_min, scene.ang_max
-    dev = torch.minimum(torch.abs(th - amin), torch.abs(th - amax))
+    dev = torch.minimum(geo.absolute(th - amin), geo.absolute(th - amax))
 
     wrap_case = amin > amax
     norm_wrap = torch.where(wrap_case, (amin - amax) / 2.0, 1.0)
@@ -141,9 +141,12 @@ def symmetry_costs(pose: Tensor, scene: Scene, mode: CostMode) -> Tensor:
     dp = geo.distance(x[..., None, :], y[..., None, :], rx[..., :, None], ry[..., :, None])
     dt = rot[..., None, :] - rrot[..., :, None]
     dt = torch.where(dt > pi, dt - 2 * pi, dt)
-    val = 5.0 - torch.sqrt(dp) - 0.4 * torch.abs(dt)
+    val = 5.0 - torch.sqrt(dp) - 0.4 * geo.absolute(dt)
     val = torch.where(scene.obj_mask > 0, val, _NEG_HUGE)
-    best = torch.clamp_min(torch.amax(val, -1), 0.0)
+    # torch.maximum splits the gradient of a tie (best == 0) in half, as
+    # jnp.maximum does; clamp_min would give it all to the row max
+    row_max = torch.amax(val, -1)
+    best = torch.maximum(row_max, torch.zeros_like(row_max))
     return -torch.sum(best * scene.obj_mask, -1)
 
 

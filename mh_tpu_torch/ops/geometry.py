@@ -21,6 +21,26 @@ def distance(xi, yi, xj, yj) -> Tensor:
     return torch.sqrt(dx * dx + dy * dy)
 
 
+class _Abs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def absolute(x: Tensor) -> Tensor:
+    """``torch.abs`` whose derivative at 0 is +1, as ``jnp.abs``'s is
+    (``select(x >= 0, g, -g)``); ``torch.abs``'s is 0 there. The layout
+    objective meets it at every pair of equal rotations (the demo scenes
+    start at rotation 0), so gradients of the objective follow JAX's."""
+    return _Abs.apply(x)
+
+
 def atan2(y: Tensor, x: Tensor) -> Tensor:
     """``torch.atan2`` with one rounding for every element.
 

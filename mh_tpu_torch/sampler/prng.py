@@ -12,7 +12,12 @@ reproduces that stream, so the port's engine consumes exactly the uniforms
   ``fold_in(k, i)``;
 - ``uniform(k, shape)`` hashes each flat index ``i`` of ``shape`` as the
   counter ``(hi(i), lo(i))``, takes ``out0 ^ out1``, keeps its top 23 bits
-  as the mantissa of a float in [1, 2) and subtracts 1.
+  as the mantissa of a float in [1, 2) and subtracts 1;
+- ``normal(k, shape)`` is ``sqrt(2) * erf_inv(u)`` with ``u`` uniform on
+  (nextafter(-1, 0), 1), ``erf_inv`` as XLA computes it on the CPU.
+
+``fma`` rounds a multiply-add once, as XLA's fused multiply-add does, so
+the gradient samplers' leapfrog and step-size updates follow ``mh_tpu``'s.
 
 A key is an int64 tensor ``[..., 2]`` holding two 32-bit words; every
 function is batched over the leading dims of its key. The words are int64
@@ -135,3 +140,118 @@ def uniform(k: Tensor, shape: tuple[int, ...] = (), minval=0.0, maxval=1.0) -> T
     hi = torch.as_tensor(maxval, dtype=torch.float32, device=f.device)
     scaled = f.double() * (hi - lo).double() + lo.double()
     return torch.maximum(lo, scaled.float())
+
+
+# XLA's float32 erf_inv (Giles' single-precision approximation): the
+# Horner coefficients for w < 5 and for w >= 5, highest power first
+_ERF_INV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+# XLA's log1p below |x| = sqrt(2) - 1: Cephes' rational approximation
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+# XLA's float32 log on the CPU (Cephes' logf): mantissa polynomial, then
+# the exponent times log(2) split in two
+_LOGF_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+           1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+           3.3333331174e-1)
+_LOGF_Q1, _LOGF_Q2 = -2.12194440e-4, 0.693359375
+
+
+def fma(a: Tensor, b, c) -> Tensor:
+    """``a * b + c`` rounded once to float32, as a fused multiply-add: the
+    float64 product of two floats is exact. Operands are float32 tensors
+    or Python numbers exact in float32; they broadcast. XLA contracts a
+    multiply feeding an add into one, on the CPU and on GPUs; where the
+    port must round as ``mh_tpu`` does, it calls this."""
+    b = b.double() if isinstance(b, Tensor) else b
+    c = c.double() if isinstance(c, Tensor) else c
+    return (a.double() * b + c).float()
+
+
+def _logf(x: Tensor) -> Tensor:
+    """XLA's float32 ``log`` on the CPU, for positive normal ``x``: ``x =
+    2^e m`` with m in [sqrt(1/2), sqrt(2)), a degree-8 polynomial in ``m -
+    1`` and the multiply-adds fused as LLVM contracts them."""
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 0x7F).float() + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)  # in [0.5, 1)
+    low = m < f32(0.707106781186547524)
+    e = e - low.float()
+    t = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    p = [f32(c) for c in _LOGF_P]
+    x2 = t * t
+    x3 = x2 * t
+    y = fma(fma(t, p[0], p[1]), t, p[2])
+    y1 = fma(fma(t, p[3], p[4]), t, p[5])
+    y2 = fma(fma(t, p[6], p[7]), t, p[8])
+    y = fma(fma(y, x3, y1), x3, y2)
+    y = fma(y, x3, e * f32(_LOGF_Q1))
+    t = fma(x2, -0.5, t) + y
+    return fma(e, f32(_LOGF_Q2), t)
+
+
+def _log1p(x: Tensor) -> Tensor:
+    """XLA's float32 ``log1p`` on the CPU, for ``x`` in (-1, 0]: the Cephes
+    rational approximation below |x| = sqrt(2) - 1, ``log(1 + x)`` above."""
+    def poly(coeffs):
+        p = torch.full_like(x, f32(coeffs[0]))
+        for c in coeffs[1:]:
+            p = fma(p, x, f32(c))
+        return p
+
+    x2 = x * x
+    small = (x * x2) * (poly(_LOG1P_NUM) / poly(_LOG1P_DEN))
+    small = x + fma(x2, -0.5, small)
+    big = _logf(torch.clamp_min(1.0 + x, f32(np.finfo(np.float32).tiny)))
+    return torch.where(torch.abs(x) < f32(math.sqrt(2.0) - 1.0), small, big)
+
+
+def _sqrt(x: Tensor) -> Tensor:
+    """The correctly rounded float32 square root of ``x >= 0``, as XLA's
+    and CUDA's ``sqrt`` give it: two Newton steps in float64. PyTorch's
+    vectorised CPU ``torch.sqrt`` on float32 is not correctly rounded: on
+    an AVX-512 build it is 1 ulp off in about 0.6% of elements once a
+    tensor holds 32 or more (``test_sqrt_is_correctly_rounded``)."""
+    xd = x.double()
+    s = torch.sqrt(xd)
+    for _ in range(2):
+        s = torch.where(s > 0, 0.5 * (s + xd / s), s)
+    return s.float()
+
+
+def erf_inv(x: Tensor) -> Tensor:
+    """``jax.lax.erf_inv`` on float32 as XLA computes it on the CPU:
+    ``w = -log1p(-x^2)``, a nine-term Horner polynomial in ``w - 2.5`` (w <
+    5) or ``sqrt(w) - 3``, each step one fused multiply-add, times ``x``;
+    +-inf at +-1. Every step is a float32 operation rounded once, so the
+    bits are the same on the CPU and on CUDA and follow XLA's on the CPU
+    (the tests hold them within 2 ulps); ``torch.erfinv`` parts by many
+    ulps in most inputs."""
+    w = -_log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, _sqrt(w) - 3.0)
+
+    def coeff(i):
+        return torch.where(lt, f32(_ERF_INV_LT5[i]), f32(_ERF_INV_GE5[i]))
+
+    p = coeff(0)
+    for i in range(1, len(_ERF_INV_LT5)):
+        p = fma(p, w, coeff(i))
+    return torch.where(torch.abs(x) == 1.0, x * math.inf, p * x)
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = f32(math.sqrt(2.0))
+
+
+def normal(k: Tensor, shape: tuple[int, ...] = ()) -> Tensor:
+    """``jax.random.normal(k, shape, float32)``: ``[..., *shape]``, batched
+    over the leading dims of the key like :func:`uniform`."""
+    return _SQRT2 * erf_inv(uniform(k, shape, _NORMAL_LO, 1.0))

@@ -226,6 +226,31 @@ def test_runs_with_jax_unimportable():
         for kw in (dict(mesh=chain_mesh(devices=["cpu"] * 2)), dict(objs_devices=2)):
             res = mh_tpu_torch.suggest_layouts(mh_tpu_torch.demo_scene(8), cfg, device="cpu", **kw)
             assert res.costs.shape == (2, 8)
+        import torch
+        from mh_tpu_torch.models import densities
+        from mh_tpu_torch.sampler import generic, hmc, mala, nuts, vi
+        from mh_tpu_torch.sampler import (
+            hmc_sample, layout_logdensity, mala_sample, meanfield_vi, nuts_sample,
+            rw_metropolis)
+        spec = mh_tpu_torch.demo_scene(6)
+        pose0 = spec.initial_pose()
+        target = layout_logdensity(spec.build(), pose0, 2.0, mh_tpu_torch.CostMode.FIXED)
+        theta0 = generic.theta_from_pose(pose0)
+        keys = prng.fold_in(prng.key(1), torch.arange(2))
+        start = theta0.expand(2, 18)
+        generic.rw_step(keys, generic.rw_init(target, start), target, 0.05)
+        mala.mala_step(keys, mala.mala_init(target, start), target, 0.05)
+        hmc.hmc_step(keys, hmc.hmc_init(target, start, 0.01), target, 3, 0)
+        nuts.nuts_step(keys, nuts.nuts_init(target, start, 0.01), target, 3, 0)
+        vi.elbo(prng.key(2), theta0, torch.zeros(18), target, 4)
+        g = densities.gaussian([0.0, 1.0], [1.0, 2.0])
+        for run in (lambda: rw_metropolis(0, g, [0.0, 0.0], 3, 2, device="cpu"),
+                    lambda: mala_sample(0, g, [0.0, 0.0], 3, 2, device="cpu"),
+                    lambda: hmc_sample(0, g, [0.0, 0.0], 2, 2, 3, n_chains=2, device="cpu"),
+                    lambda: nuts_sample(0, g, [0.0, 0.0], 2, 2, 3, n_chains=2, device="cpu")):
+            samples, final = run()
+            assert samples.shape[0] == 2 and bool(torch.isfinite(samples).all())
+        assert meanfield_vi(0, g, [0.0, 0.0], n_steps=3, device="cpu")[2].shape == (3,)
         assert not any(m == "jax" or m.startswith(("jax.", "jaxlib", "mh_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
@@ -235,6 +260,42 @@ def test_runs_with_jax_unimportable():
                          timeout=300, cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_gradient_samplers_without_a_card_raise():
+    """Numpy or list theta0 and no device means the card: without one,
+    every sampler raises rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks what happens without a card")
+    from mh_tpu_torch.models.densities import gaussian
+    from mh_tpu_torch.sampler import (
+        hmc_sample, mala_sample, meanfield_vi, nuts_sample, rw_metropolis)
+
+    g = gaussian([0.0, 1.0], [1.0, 2.0])
+    theta0 = np.zeros(2, np.float32)
+    for run in (lambda: rw_metropolis(0, g, theta0, 3, 2),
+                lambda: mala_sample(0, g, theta0, 3, 2),
+                lambda: hmc_sample(0, g, [0.0, 0.0], 2, 2, 3),
+                lambda: nuts_sample(0, g, theta0, 2, 2, 3),
+                lambda: meanfield_vi(0, g, theta0, n_steps=3),
+                lambda: rw_metropolis(0, g, torch.zeros(2), 3, 2, device="cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
+    # a CPU tensor names its device
+    samples, _ = rw_metropolis(0, g, torch.zeros(2), 3, 2)
+    assert samples.device.type == "cpu"
+
+
+def test_sampler_exports_match_mh_tpu():
+    """mh_tpu_torch.sampler exports the entry points mh_tpu.sampler does."""
+    import mh_tpu.sampler as JS
+    import mh_tpu_torch.sampler as TS
+
+    names = ("hmc_sample", "nuts_sample", "mala_sample", "meanfield_vi", "layout_logdensity",
+             "rw_metropolis", "run_smc", "run_tempered", "geometric_ladder", "run_chains",
+             "run_chain", "compile_chains", "mh_init", "mh_step", "MHState")
+    for name in names:
+        assert hasattr(JS, name) and callable(getattr(TS, name)), name
 
 
 @pytest.mark.parametrize("engine", ["torch", "xla", "auto"])

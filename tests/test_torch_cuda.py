@@ -368,3 +368,44 @@ def test_summarize_chains_on_card_matches_cpu(cuda):
     for k, v in cpu.items():
         assert got[k].device.type == "cuda"
         torch.testing.assert_close(got[k].cpu(), v, rtol=1e-4, atol=1e-6)
+
+
+def test_normal_on_card_matches_cpu(cuda):
+    """prng.normal takes float32 steps rounded once each (the multiply-adds
+    through float64), so the card gives the CPU's draws within 2 ulps."""
+    import numpy as np
+
+    from mh_tpu_torch.sampler import prng
+
+    keys = prng.fold_in(prng.key(4), torch.arange(64))
+    got = prng.normal(keys.to(cuda), (300,)).cpu().numpy()
+    want = prng.normal(keys, (300,)).numpy()
+
+    def ordered(a):
+        i = a.view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    assert np.abs(ordered(got) - ordered(want)).max() <= 2
+
+
+def test_layout_gradient_on_card_matches_cpu(cuda):
+    """beta * total_cost and its autograd gradient at 64 chains of
+    demo_scene(32) (FIXED, positive weights) on the card against the CPU,
+    rtol 1e-3 (transcendentals and sums round apart by ulps)."""
+    from mh_tpu_torch.sampler import prng
+    from mh_tpu_torch.sampler.generic import layout_logdensity, theta_from_pose, value_and_grad
+
+    spec = dataclasses.replace(
+        mh_tpu_torch.demo_scene(32), w_pairwise=2.0, w_visual_balance=1.0, w_focal=2.0,
+        w_symmetry=2.0, w_clearance=2.0, w_offlimits=1.0, w_surface_area=2.0)
+    theta = theta_from_pose(spec.initial_pose()) + 0.5 * prng.normal(
+        prng.fold_in(prng.key(8), torch.arange(64)), (96,))
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        fn = layout_logdensity(spec.build(device=dev), spec.initial_pose(device=dev), 2.0,
+                               mh_tpu_torch.CostMode.FIXED)
+        lp, g = value_and_grad(fn, theta.to(dev))
+        out[dev.type] = (lp.cpu(), g.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-3, atol=1e-3)
+    scale = float(out["cpu"][1].abs().max())
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-3, atol=1e-3 * scale)
