@@ -148,7 +148,27 @@ non-zero):
    with a best log-probability at or above the start's, and VI's ELBO must
    rise. It prints the CUDA-event ms per gradient evaluation, per forward
    and per normal draw of the chains' momenta at 100 x 1024, the ms per
-   draw of each sampler and NUTS's mean depth.
+   draw of each sampler and NUTS's mean depth;
+19. native: the native C ABI (``mh_tpu_torch/native/``), ``g++`` building
+   ``libmh_tpu_torch.so`` and the port's two C hosts from this checkout,
+   then the library loaded in this process with ``ctypes.CDLL``:
+   ``MHKernelWrapper`` on the wire structs of ``demo_scene(100)``, 1024
+   chains, 1000 steps, seed 0, in PARITY with one move and in weighted
+   FIXED (``w_offlimits=-1.5``), and the reference's ``KernelWrapper``
+   with ``gridxDim=1024``, ``blockxDim=64`` (M = K = 64), ``iterations=
+   1000`` under ``MH_TPU_SEED=0``: each call must launch the fused kernel
+   once, call no plain version, and give points, costs and (for
+   ``MHKernelWrapper``) accept rates bitwise equal, as float32, to
+   ``suggest_layouts(..., key=0, device="cuda")`` called directly; it
+   prints the warm wall ms of the ABI call and of the direct call (least
+   of 3, in turns, beside the bridge's ``run_wire`` called from Python)
+   and the kernel's CUDA-event ms. Then the two C hosts
+   run as processes on the card (``MH_TPU_TORCH_DEVICE`` unset) and must
+   exit 0 with their success lines; it prints each one's wall time;
+20. examples: ``python -m mh_tpu_torch.examples.demo_layout``,
+   ``huge_scene`` (1024 objects on 4 row shards) and ``advanced_sampling``
+   at small sizes, each a process on the card that must exit 0 and print
+   its results.
 
 Three phases run only when named: ``slab_width`` (weighted FIXED by slab
 width), ``kernel_variants`` (the off-limits update against the rows
@@ -190,7 +210,7 @@ BLOCK = dict(n_moves_per_step=64, accept_draws=64)  # BASELINE config 3, layout_
 SWEEP_OBJECTS = (32, 100, 256, 512)
 PHASES = ("rng", "kernel_vs_plain", "main_path", "pi", "cli", "prng", "torch_engine_vs_cpu",
           "main_path_torch", "tempering_smc", "sharded", "multiprocess", "recovery", "metrics",
-          "time", "profile", "gradient")
+          "time", "profile", "gradient", "native", "examples")
 # named only: weighted FIXED ms/step by slab width (the kernel takes the
 # width at launch), the measurement behind fused_mh.off_slab_width; the
 # MH kernel's variant builds (kernel_variants below); and the chains HMC
@@ -1016,6 +1036,152 @@ def gradient_phase(dev, smi: str) -> None:
         elbo_first_50=first, elbo_last_50=last, sigma_mean=float(sigma.mean()), card=smi)
 
 
+# the port's C hosts and the line each prints on success
+NATIVE_HOSTS = (("test_wrapper", "native ABI smoke test OK"),
+                ("test_ref_compat", "reference-ABI drop-in test OK"))
+# phase examples: (module, arguments, a line the run must print)
+EXAMPLES = (
+    ("demo_layout", ["--chains", "64", "--iters", "100", "--objects", "32"], "proposals in"),
+    ("huge_scene", ["--objects", "1024", "--chains", "2", "--iters", "5", "--objs-devices", "4"],
+     "proposals over a 1024x1024 objective"),
+    ("advanced_sampling", ["--objects", "16", "--replicas", "16", "--draws", "4"],
+     "ELBO: start"),
+)
+
+
+def wall(fn):
+    """``(fn(), seconds)`` on the host clock, the card synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def native_phase(smi: str, counters, env: dict) -> int:
+    """Phase native (item 19); returns the fused kernel's launches in the
+    three ABI calls."""
+    import numpy as np
+    import torch
+
+    from mh_tpu_torch import CostMode, SamplerConfig, demo_scene, suggest_layouts
+    from mh_tpu_torch.kernels import fused_mh as F
+    from mh_tpu_torch.native import _build as NB
+    from mh_tpu_torch.native import abi, bridge
+
+    built = NB.build()
+    say("native", step="build", library=str(built.library.relative_to(HERE)),
+        seconds=built.seconds)
+    dev = torch.device("cuda")
+    head = demo_scene(100)
+    single = SamplerConfig(iterations=1000, n_chains=1024)
+    fixed_head = dataclasses.replace(head, w_offlimits=-1.5)
+    fixed = dataclasses.replace(single, mode=CostMode.FIXED)
+    block = dataclasses.replace(single, **BLOCK)
+
+    def mh_call(spec, cfg):
+        wire = bridge.encode_wire(spec, cfg, 0)
+
+        def call():
+            rc, points, costs, accept = abi.mh_kernel_wrapper(wire)
+            if rc:
+                raise AssertionError(f"MHKernelWrapper returned {rc}")
+            return points, costs, accept
+        return call, wire
+
+    def ref_call(spec, cfg):
+        def call():
+            out = abi.kernel_wrapper(spec, cfg.n_chains, cfg.n_moves_per_step, cfg.iterations)
+            if out is None:
+                raise AssertionError("KernelWrapper returned NULL")
+            return out
+        # what the shim hands MHKernelWrapper: the reference's block layout in PARITY
+        return call, bridge.encode_wire(spec, cfg, 0)
+
+    seed_was = os.environ.get("MH_TPU_SEED")
+    os.environ["MH_TPU_SEED"] = "0"
+    launches = 0
+    try:
+        for name, spec, cfg, (call, wire) in (
+                ("MHKernelWrapper", head, single, mh_call(head, single)),
+                ("MHKernelWrapper", fixed_head, fixed, mh_call(fixed_head, fixed)),
+                ("KernelWrapper", head, block, ref_call(head, block))):
+            for fn, attr in counters:
+                setattr(fn, attr, 0)
+            out = call()
+            (kernel, _), (plain, _) = counters
+            n_launch, n_plain = kernel.launches, plain.calls
+            if n_launch != 1 or n_plain:
+                raise AssertionError(f"{name}: {n_launch} kernel launches, {n_plain} plain calls")
+            launches += n_launch
+
+            def direct():
+                return suggest_layouts(spec, cfg, key=0, device="cuda")
+
+            want = direct()
+            for field, got in zip(("points", "costs", "accept_rate"), out):
+                g = np.asarray(got, np.float32)
+                w = np.asarray(getattr(want, field), np.float32)
+                if g.shape != w.shape or g.tobytes() != w.tobytes():
+                    raise AssertionError(f"{name} ({cfg.mode.name}): {field} differ from "
+                                         "the direct suggest_layouts call")
+            # in turns: the C ABI, the direct call, and the bridge's run_wire
+            # called from Python (the ABI call less its C side)
+            abi_s, direct_s, bridge_s = [], [], []
+            for _ in range(3):
+                abi_s.append(wall(call)[1])
+                direct_s.append(wall(direct)[1])
+                bridge_s.append(wall(lambda: bridge.run_wire(*wire))[1])
+            scene = spec.build(device=dev)
+            pose0 = spec.initial_pose(device=dev).expand(cfg.n_chains, 100, 6).contiguous()
+            pk = F.pack_scene(scene, cfg)
+            kernel_ms = events_ms(lambda: F.fused_mh_cuda(pk, pose0, 0, cfg.iterations), 3)
+            say("native", call=name, card=smi, objs=100, chains=cfg.n_chains,
+                steps=cfg.iterations, mode=cfg.mode.name, w_offlimits=spec.w_offlimits,
+                moves_per_step=cfg.n_moves_per_step, accept_draws=cfg.accept_draws,
+                launches=n_launch, plain_calls=n_plain, bitwise_equal_direct=True,
+                fields_compared=len(out), mean_accept=float(want.accept_rate.mean()),
+                abi_wall_ms=min(abi_s) * 1e3, direct_wall_ms=min(direct_s) * 1e3,
+                bridge_wall_ms=min(bridge_s) * 1e3,
+                abi_minus_direct_ms=(min(abi_s) - min(direct_s)) * 1e3,
+                kernel_event_ms=kernel_ms)
+    finally:
+        if seed_was is None:
+            os.environ.pop("MH_TPU_SEED", None)
+        else:
+            os.environ["MH_TPU_SEED"] = seed_was
+
+    host_env = {k: v for k, v in env.items() if k != bridge.DEVICE_ENV}
+    for host, line in NATIVE_HOSTS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([str(built.host(host))], cwd=HERE, env=host_env,
+                              capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+        if proc.returncode or line not in proc.stdout:
+            raise AssertionError(f"{host}: rc {proc.returncode}\n{proc.stdout[-2000:]}"
+                                 f"\n{proc.stderr[-4000:]}")
+        say("native", host=host, card=smi, rc=proc.returncode, wall_s=seconds,
+            backend=proc.stdout.splitlines()[0] if host == "test_wrapper" else None,
+            printed=line)
+    return launches
+
+
+def examples_phase(smi: str, env: dict) -> None:
+    """Phase examples (item 20)."""
+    for name, args, line in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"mh_tpu_torch.examples.{name}", *args],
+                              cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+        if proc.returncode or line not in proc.stdout:
+            raise AssertionError(f"example {name}: rc {proc.returncode}\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        say("examples", example=name, argv=args, card=smi, rc=proc.returncode, wall_s=seconds,
+            last_line=proc.stdout.strip().splitlines()[-1])
+
+
 def run_main_path(name, spec, cfg, device, counters):
     """Drive ``suggest_layouts`` once with every launch count at 0, check
     the result, run it again for determinism; returns the launch count."""
@@ -1136,13 +1302,6 @@ def main(argv=None) -> int:
 
     def read_counts():
         return {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in all_counters}
-
-    def wall(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
 
     def check_result(name, res, rcfg):
         if not (np.isfinite(res.costs).all() and np.isfinite(res.points).all()):
@@ -1974,6 +2133,13 @@ def main(argv=None) -> int:
         gradient_phase(dev, smi)
     if "gradient_warmup" in phases:
         gradient_warmup_phase(dev, smi)
+    if "native" in phases:
+        # 19. the native C ABI, in this process and as C host processes
+        fused_launches += native_phase(smi, fused_counters, env)
+        fused_calls += 3
+    if "examples" in phases:
+        # 20. the examples as processes on the card
+        examples_phase(smi, env)
 
     if "jax" in sys.modules or "mh_tpu" in sys.modules:
         raise AssertionError("the port imported JAX or mh_tpu")

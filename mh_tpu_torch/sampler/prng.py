@@ -14,7 +14,9 @@ reproduces that stream, so the port's engine consumes exactly the uniforms
   counter ``(hi(i), lo(i))``, takes ``out0 ^ out1``, keeps its top 23 bits
   as the mantissa of a float in [1, 2) and subtracts 1;
 - ``normal(k, shape)`` is ``sqrt(2) * erf_inv(u)`` with ``u`` uniform on
-  (nextafter(-1, 0), 1), ``erf_inv`` as XLA computes it on the CPU.
+  (nextafter(-1, 0), 1), ``erf_inv`` as XLA computes it on the CPU;
+- ``gumbel(k, shape)`` is ``-log(-log(u))`` with ``u`` uniform on [tiny, 1),
+  ``log`` as XLA computes it on the CPU.
 
 ``fma`` rounds a multiply-add once, as XLA's fused multiply-add does, so
 the gradient samplers' leapfrog and step-size updates follow ``mh_tpu``'s.
@@ -255,3 +257,13 @@ def normal(k: Tensor, shape: tuple[int, ...] = ()) -> Tensor:
     """``jax.random.normal(k, shape, float32)``: ``[..., *shape]``, batched
     over the leading dims of the key like :func:`uniform`."""
     return _SQRT2 * erf_inv(uniform(k, shape, _NORMAL_LO, 1.0))
+
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(k: Tensor, shape: tuple[int, ...] = ()) -> Tensor:
+    """``jax.random.gumbel(k, shape, float32)`` (its default mode, "low"):
+    ``[..., *shape]``, batched over the leading dims of the key like
+    :func:`uniform`."""
+    return -_logf(-_logf(uniform(k, shape, _TINY, 1.0)))

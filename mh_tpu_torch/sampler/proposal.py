@@ -12,8 +12,11 @@ needs no matrix product (a float32 product may run in TF32 on the card).
 The touched rows are computed with ``mh_tpu``'s own expressions
 (``x + (clip(x + dx) - x)``, ``v1 + (v2 - v1)``, ...), so they round alike.
 
-Every function is batched over the leading dims of the pose and reads
-nothing back to the host.
+Every function of the chain engine is batched over the leading dims of the
+pose and reads nothing back to the host. The single-move wrappers at the
+end (``pick_unfrozen``, ``translate_move``, ``rotate_move``, ``swap_move``)
+take one key and one pose f32[N, 6], as ``mh_tpu``'s do, for tests and
+diagnostics.
 """
 
 from __future__ import annotations
@@ -174,3 +177,51 @@ def block_propose(key: Tensor, pose: Tensor, scene: Scene, cfg: SamplerConfig,
     """``block_propose_from_uniforms`` drawing its own uniform sweep."""
     u = prng.uniform(key, (cfg.n_moves_per_step, UNIFORMS_PER_MOVE))
     return block_propose_from_uniforms(u, pose, scene, cfg, scale)
+
+
+# --- single-move reference-shaped wrappers (used by tests/diagnostics) ------
+
+_NEG_HUGE = -1e30
+
+
+def pick_unfrozen(key: Tensor, scene: Scene) -> Tensor:
+    """Uniform index over valid & unfrozen objects via Gumbel-argmax (the
+    first maximum; object 0 where no object is movable)."""
+    ok = scene.obj_mask * (1.0 - scene.frozen.to(torch.float32))
+    logits = torch.where(ok > 0, 0.0, _NEG_HUGE)
+    return torch.argmax(prng.gumbel(key, (scene.n_pad_objs,)) + logits, -1)
+
+
+def _single_move(pose: Tensor, scene: Scene, cfg: SamplerConfig, scale, move: int, i1, i2,
+                 nrm: Tensor) -> Tensor:
+    """One move of type ``move`` on rows ``i1``/``i2`` of ``pose`` f32[N, 6]
+    from the normals ``nrm`` f32[3], applied as ``mh_tpu``'s wrappers apply
+    it: to the picked rows whether or not they are movable."""
+    tables = dataclasses.replace(MoveTables.build(scene, cfg),
+                                 has_unf=torch.ones((), dtype=torch.bool, device=pose.device))
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=pose.device)
+    sx, sy = tables.sigmas
+    dx, dy, drot = nrm[0] * sx * scale, nrm[1] * sy * scale, nrm[2] * tables.sigma_t * scale
+    one = torch.full((1,), move, dtype=torch.int32, device=pose.device)
+    fields = [t.reshape(1) for t in (dx, dy, drot, torch.as_tensor(i1), torch.as_tensor(i2))]
+    return apply_move(pose[None], tables, one, *fields)[0]
+
+
+def translate_move(key: Tensor, pose: Tensor, scene: Scene, cfg: SamplerConfig,
+                   scale) -> Tensor:
+    k_obj, k_nrm = prng.split(key)
+    i = pick_unfrozen(k_obj, scene)
+    return _single_move(pose, scene, cfg, scale, 0, i, i, prng.normal(k_nrm, (3,)))
+
+
+def rotate_move(key: Tensor, pose: Tensor, scene: Scene, cfg: SamplerConfig,
+                scale) -> Tensor:
+    k_obj, k_nrm = prng.split(key)
+    i = pick_unfrozen(k_obj, scene)
+    return _single_move(pose, scene, cfg, scale, 1, i, i, prng.normal(k_nrm, (3,)))
+
+
+def swap_move(key: Tensor, pose: Tensor, scene: Scene) -> Tensor:
+    k1, k2 = prng.split(key)
+    return _single_move(pose, scene, SamplerConfig(), 1.0, 2, pick_unfrozen(k1, scene),
+                        pick_unfrozen(k2, scene), torch.zeros(3, device=pose.device))

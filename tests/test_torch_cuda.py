@@ -409,3 +409,24 @@ def test_layout_gradient_on_card_matches_cpu(cuda):
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-3, atol=1e-3)
     scale = float(out["cpu"][1].abs().max())
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-3, atol=1e-3 * scale)
+
+
+@pytest.mark.parametrize("name,args,line", [
+    ("demo_layout", ["--chains", "64", "--iters", "50", "--objects", "32"], "proposals in"),
+    ("huge_scene", ["--objects", "512", "--chains", "2", "--iters", "3", "--objs-devices", "2"],
+     "proposals over a 512x512 objective"),
+    ("advanced_sampling", ["--objects", "8", "--replicas", "8", "--draws", "10"], "ELBO: start"),
+])
+def test_example_runs_on_the_card(cuda, name, args, line):
+    """Each example without ``--device`` runs on the card to the end."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-m", f"mh_tpu_torch.examples.{name}", *args],
+                         cwd=repo, capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": str(repo)})
+    assert run.returncode == 0, run.stderr[-2000:]
+    assert line in run.stdout

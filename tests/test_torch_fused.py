@@ -132,6 +132,26 @@ def test_reference_matches_jax_kernel(mode, w_off):
     assert_breakdowns_self_consistent(js, tout[0], tout[1], mode)
 
 
+@pytest.mark.parametrize("seed", [2**31 - 1, 2**31, 2**32 + 5, -1])
+def test_int64_seeds_match_jax_kernel_on_their_low_32_bits(seed):
+    """A wire seed is int64. The port's kernel takes its low 32 bits, as
+    mh_tpu's does for an int32 seed; mh_tpu's fused path packs the seed as
+    int32 and raises outside that range (ROADMAP Queue 3), where the port
+    equals mh_tpu at the int32 with the same bits."""
+    spec = mh_tpu.demo_scene(8)
+    js, pose0 = spec.build(), np.array(spec.initial_pose())
+    low = int(np.array(seed & 0xFFFFFFFF, np.uint32).view(np.int32))
+    jcfg, tcfg = configs("PARITY")
+    if low != seed:
+        with pytest.raises(OverflowError):
+            JF.run_chains_fused(seed, jnp.asarray(pose0), js, jcfg, 8, 30, interpret=True)
+    jout, _ = run_both(js, pose0, "PARITY", 8, 30, seed=low)
+    tout = [a.numpy() for a in TF.run_chains_fused(seed, torch.as_tensor(pose0),
+                                                   to_torch_scene(js), tcfg, 8, 30)]
+    assert assert_chains_agree(jout, tout, 8).sum() >= 6
+    assert tout[2].any()
+
+
 def test_reference_matches_jax_kernel_random_scene():
     """Random geometry, both angle regimes, 3 clearances, frozen objects and
     a weighted off-limits term (tracked in FIXED mode)."""

@@ -188,3 +188,64 @@ def test_scale_and_sigma_follow_mh_tpu():
         for a, b in zip(JP.translation_sigmas(js, jc), TP.translation_sigmas(ts, tc)):
             assert float(a) == float(b)
     assert dataclasses.is_dataclass(TP.MoveTables.build(ts, tc))
+
+
+# --- the single-move wrappers against mh_tpu's, on jax.random's keys ---------
+
+N_KEYS = 32
+
+
+@pytest.mark.parametrize("shape", [(1000,), (4, 7)])
+def test_gumbel_matches_jax(shape):
+    from mh_tpu_torch.sampler import prng
+
+    for seed in (0, 5, 2**31 + 3):
+        want = np.asarray(jax.random.gumbel(jax.random.key(seed), shape))
+        got = prng.gumbel(prng.key(seed), shape).numpy()
+        assert got.dtype == np.float32 and got.shape == want.shape
+        ulps = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32))
+        assert ulps.max() <= 2, ulps.max()
+
+
+@pytest.mark.parametrize("seed,n_frozen", [(7, 4), (8, 0), (9, 11)])
+def test_pick_unfrozen_matches_mh_tpu(seed, n_frozen):
+    """The same index for every key; never a frozen or padded object."""
+    from mh_tpu_torch.sampler import prng
+
+    js, ts, _, _ = scene_pair(seed, n_frozen)
+    pick = jax.jit(JP.pick_unfrozen)
+    movable = ~np.asarray(js.frozen) & (np.asarray(js.obj_mask) > 0)
+    picks = []
+    for k in range(N_KEYS):
+        want = int(pick(jax.random.key(k), js))
+        got = TP.pick_unfrozen(prng.key(k), ts)
+        assert got.dtype == torch.int64 and int(got) == want
+        assert movable[want]
+        picks.append(want)
+    assert len(set(picks)) >= min(3, int(movable.sum()))
+
+
+@pytest.mark.parametrize("mode", ["PARITY", "FIXED"])
+@pytest.mark.parametrize("move", ["translate", "rotate", "swap"])
+def test_single_move_wrappers_match_mh_tpu(move, mode):
+    """From the same key data the wrappers give poses within 1e-6."""
+    from mh_tpu_torch.sampler import prng
+
+    js, ts, pose, _ = scene_pair(10, 3)
+    jc, tc = configs(mode, sigma_xy_override=3.0 if mode == "FIXED" else 0.0)
+    if move == "swap":
+        jfn = jax.jit(JP.swap_move)
+        run_j = lambda k: jfn(k, jnp.asarray(pose), js)  # noqa: E731
+        run_t = lambda k: TP.swap_move(k, torch.as_tensor(pose), ts)  # noqa: E731
+    else:
+        jfn = jax.jit(getattr(JP, f"{move}_move"), static_argnames=("cfg",))
+        tfn = getattr(TP, f"{move}_move")
+        run_j = lambda k: jfn(k, jnp.asarray(pose), js, jc, jnp.float32(1.5))  # noqa: E731
+        run_t = lambda k: tfn(k, torch.as_tensor(pose), ts, tc, 1.5)  # noqa: E731
+    changed = 0
+    for k in range(N_KEYS):
+        want = np.asarray(run_j(jax.random.key(k)))
+        got = run_t(prng.key(k)).numpy()
+        np.testing.assert_allclose(got, want, **TOL)
+        changed += int(np.any(got != pose))
+    assert changed >= N_KEYS // 2
