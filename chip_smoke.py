@@ -37,13 +37,17 @@ non-zero):
    main_path_fixed: the same with ``w_offlimits=-1.5`` and
    ``mode=FIXED`` (the off-limits slab state); and main_path_block: the
    same scene with ``n_moves_per_step=64, accept_draws=64`` over 500 steps
-   and no ``device`` (a SceneSpec runs on CUDA by default). Each must go
-   through the CUDA kernel (launch count
-   >= 1, plain version not called), give finite costs, a mean accept rate
+   and no ``device`` (a SceneSpec runs on CUDA by default). On a host with
+   several cards each call spans every card (one shard a card where they
+   divide the chains). Each must go through the CUDA kernel (one launch per
+   shard, plain version not called; each row prints its card and shard
+   counts and launches), give finite costs, a mean accept rate
    in (0, 1), breakdowns that match ``cost_terms`` on every final pose
    (rtol=2e-4, atol=2e-3), and the same bits when run again;
 6. pi: the pi kernel's hit counts equal the plain version's exactly at
-   2^28 samples and at a count that is not a whole number of tiles; then
+   2^28 samples and at a count that is not a whole number of tiles; the
+   plain ``estimate_pi(0, 2^22)`` (the threefry stream) on the card must
+   equal the same call on the CPU exactly; then
    main_path_pi: ``python -m mh_tpu_torch pi --fused --samples 2^32`` run
    in this process through ``cli.main`` must launch the kernel, not call
    the plain version, and land within 6 sigma of pi;
@@ -76,31 +80,46 @@ non-zero):
    1 of 24 rounds' swap rates may differ), and ``python -m mh_tpu_torch
    temper`` / ``smc`` in subprocesses;
 12. sharded: chains over a mesh of 4 shards on card 0 (and, on a host
-   with more cards, one shard per card): ``suggest_layouts(demo_scene(100),
+   with more cards, ``every_card``: one shard per card): ``suggest_layouts(demo_scene(100),
    1024 chains, 1000 steps, engine="fused", mesh=...)`` in PARITY, weighted
    FIXED and (M, K) = (64, 64) must launch the kernel once per shard, call
-   no plain version and equal the call without a mesh bit for bit in every
-   chain; ``run_chains_sharded`` (100 objects x 1024 chains x 20 steps)
+   no plain version and equal one launch on card 0 (a one-shard mesh) bit
+   for bit in every chain; ``run_chains_sharded`` (100 objects x 1024 chains x 20 steps)
    against ``run_chains`` prints the chains that differ in any bit;
    ``run_chains_collective`` (10 rounds of 10 steps), tempering (with and
    without ``adapt_ladder``) and SMC poses (with and without ``adaptive``)
    at phase 11's sizes must equal one shard bit for bit, SMC's ESS and
    log-evidence within rtol 1e-6; and ``suggest_layouts(demo_scene(4096),
-   2 chains, 10 steps, objs_devices=4)`` (past the kernel's object limit)
-   must accept as the unsharded torch engine, with poses within 1e-4 and
-   totals matching ``cost_terms``; each row prints its ms per call;
-13. multiprocess: 2 processes (``chip_smoke.py --worker multiprocess``)
-   with 2 shards of card 0 each, on ``gloo``, asked for (two processes
-   name one card, which NCCL refuses; the phase prints why), so 4 global
-   shards: the fused kernel at 100 objects x 1024 chains x 1000 steps in
-   PARITY and weighted FIXED must launch twice in each process, call no
-   plain version and, gathered, equal one launch bit for bit in every
-   chain; the torch engine (20 steps), the collective runner, tempering
-   (with and without ``adapt_ladder``) and SMC (with and without
-   ``adaptive``) at phase sharded's sizes must equal its in-process 4-shard
-   mesh bit for bit; each row prints the workers' and the in-process CUDA-
-   event ms per call. On a host with 2 or more cards the same runs once
-   more with one process per card on ``nccl``;
+   4 chains, 10 steps, objs_devices=4)`` (past the kernel's object limit;
+   one objs shard per card where the cards divide by 4, else 4 of card 0)
+   in PARITY and in weighted FIXED must accept as the unsharded torch
+   engine on card 0, with poses within 1e-4 and totals matching ``cost_terms``; each
+   row prints its card count and ms per call (the row-sharded rows also ms
+   per step, the difference of 10 and 2 steps);
+13. multiprocess: worker processes (``chip_smoke.py --worker
+   multiprocess ...``) join one process group and run every program on
+   meshes over all their shards. Layout ``cuda0_2x2``: 2 processes with 2
+   shards of card 0 each, on ``gloo``, asked for (two processes name one
+   card, which NCCL refuses; the phase prints why); on a host with 2 or
+   more cards ``card_each_2x2``, 2 processes with 2 shards of a card each,
+   and with 4 or more ``card_each_4x1``, 4 processes with one card each,
+   both on ``nccl``. The fused kernel at 100 objects x 1024 chains x 1000
+   steps in PARITY and weighted FIXED must launch once per shard in each
+   process, call no plain version and, gathered, equal one launch bit for
+   bit in every chain; the torch engine (20 steps), the collective runner,
+   tempering (with and without ``adapt_ladder``) and SMC (with and without
+   ``adaptive``) at phase sharded's sizes must equal its in-process
+   4-shard mesh bit for bit; and the row-sharded objective,
+   ``run_chains_objsharded`` at ``demo_scene(4096)``, 4 chains, 10 steps
+   in PARITY and weighted FIXED, on a 1 x 4 (chains x objs) mesh whose objs
+   shards live in different processes (``objsharded_objs_span``) and on a
+   2 x 2 mesh whose chain rows do (``objsharded_chains_span``; under
+   ``card_each_4x1`` both axes cross processes), must return each row
+   bitwise alike from every process holding it and equal the same mesh
+   shape on card 0 in this process bit for bit. Each row prints the
+   backend, the workers' and the in-process CUDA-event ms per call, and
+   for the row-sharded programs the ms per step of each process (the
+   difference of 10 and 2 steps);
 14. recovery: the torch engine at 100 objects x 1024 chains on the card
    runs 2 R rounds uninterrupted, and R rounds, a checkpoint and SIGKILL
    in another process, which a fresh process restores and runs R more: the
@@ -242,6 +261,14 @@ RECOVERY_ROUNDS, RECOVERY_ITERS = 3, 10  # R rounds before the kill, R after
 TORCH_STEPS, COLLECTIVE_ROUNDS = 20, (10, 10)
 TEMPER = dict(n_replicas=64, exchange_every=5, rounds=24)
 SMC = dict(n_particles=64, n_stages=8, mutate_steps=5)
+# the row-sharded objective past the kernel's object limit (phases sharded
+# and multiprocess): objects, chains, steps, and the short run whose time
+# is taken off to give ms per step
+HUGE_OBJS, HUGE_CHAINS, HUGE_STEPS, HUGE_SHORT = 4096, 4, 10, 2
+# phase multiprocess's row-sharded programs and their (chains x objs) mesh
+# over the global shards: the objs axis across processes, the chains axis
+# across processes (the other programs take the 1-D chains mesh)
+OBJ_MESHES = {"objsharded_objs_span": (1, 4), "objsharded_chains_span": (2, 2)}
 
 
 def say(phase: str, **fields) -> None:
@@ -319,7 +346,10 @@ def runs_across_processes(dev) -> dict:
     import dataclasses as dc
 
     from mh_tpu_torch import CostMode, SamplerConfig, demo_scene
+    import torch
+
     from mh_tpu_torch.kernels import fused_mh as F
+    from mh_tpu_torch.parallel.objshard import chain_rows, run_chains_objsharded
     from mh_tpu_torch.parallel.sharded import run_chains_collective, run_chains_sharded
     from mh_tpu_torch.sampler import prng
     from mh_tpu_torch.sampler.smc import run_smc
@@ -367,10 +397,55 @@ def runs_across_processes(dev) -> dict:
             return {**state_fields(s), **diag}
         return run
 
+    huge = demo_scene(HUGE_OBJS)
+    huge_pose = huge.initial_pose(device=dev)
+    huge_scenes = {"parity": (huge.build(device=dev), CostMode.PARITY),
+                   "fixed_weighted": (dc.replace(huge, w_offlimits=-1.5).build(device=dev),
+                                      CostMode.FIXED)}
+
+    def objsharded(variant):
+        hscene, mode = huge_scenes[variant]
+
+        def run(mesh, steps=HUGE_STEPS):
+            s = run_chains_objsharded(key, huge_pose, hscene, SamplerConfig(
+                iterations=steps, n_chains=HUGE_CHAINS, mode=mode), mesh)
+            return {**state_fields(s), "rows": torch.tensor(chain_rows(mesh))}
+        return run
+
     return {"fused_parity": fused(scene, cfg), "fused_fixed_weighted": fused(fixed_scene, fixed_cfg),
             "torch": torch_engine, "collective": collective,
             "tempering": tempering(False), "tempering_adapted": tempering(True),
-            "smc": smc(False), "smc_adaptive": smc(True)}
+            "smc": smc(False), "smc_adaptive": smc(True),
+            **{f"{m}_{v}": objsharded(v) for m in OBJ_MESHES for v in huge_scenes}}
+
+
+def obj_mesh_of(name: str):
+    """The ``OBJ_MESHES`` entry of a row-sharded program, else None."""
+    return next((m for m in OBJ_MESHES if name.startswith(m)), None)
+
+
+def rows_once(got: dict) -> tuple[dict, int]:
+    """A row-sharded program's gathered outputs with each chain row once, in
+    row order, and the number of rows more than one process returned: every
+    copy of a row must be bitwise equal to the first."""
+    import torch
+
+    rows = got["rows"].tolist()
+    per_row = len(got["pose"]) // len(rows)
+    seen, shared = {}, set()
+    for j, r in enumerate(rows):
+        block = {k: v[j * per_row:(j + 1) * per_row] for k, v in got.items() if k != "rows"}
+        if r in seen:
+            shared.add(r)
+            if not all(same_bits(v, seen[r][k]) for k, v in block.items()):
+                raise AssertionError(f"two processes' copies of chain row {r} differ")
+        else:
+            seen[r] = block
+    order = sorted(seen)
+    if order != list(range(len(order))):
+        raise AssertionError(f"gathered chain rows {rows}")
+    return ({k: torch.cat([seen[r][k] for r in order]) for k in seen[order[0]]}
+            | {"rows": torch.tensor(order)}, len(shared))
 
 
 # what of each program's output is this process's rows (gathered across
@@ -389,14 +464,19 @@ def multiprocess_worker(pid: int, nproc: int, port: int, out: str, backend: str,
     from mh_tpu_torch import SamplerConfig, demo_scene
     from mh_tpu_torch.kernels import fused_mh as F
     from mh_tpu_torch.parallel.multihost import global_chain_mesh, initialize, process_allgather
+    from mh_tpu_torch.parallel.objshard import chain_obj_mesh
     from mh_tpu_torch.sampler import prng
     from mh_tpu_torch.sampler.mh import run_chains
 
     chosen = initialize(f"127.0.0.1:{port}", nproc, pid, backend=backend)
     mesh = global_chain_mesh(devices.split(","))
+    # every process builds the meshes in one order (the device lists are exchanged)
+    obj_meshes = {m: chain_obj_mesh(*shape, devices=devices.split(","))
+                  for m, shape in OBJ_MESHES.items()}
     dev = mesh.axis_devices("chains")[0]
     res = {"backend": chosen[0], "reason": chosen[1], "shards": mesh.axis_shards("chains"),
-           "devices": [str(d) for d in mesh.axis_devices("chains")], "programs": {}}
+           "devices": [str(d) for d in mesh.axis_devices("chains")], "programs": {},
+           "obj_mesh_processes": {m: om.processes.tolist() for m, om in obj_meshes.items()}}
     # untimed and uncounted: load the kernel library and the engine's CUDA
     # modules, so that no program's time holds the process's first launch
     warm = demo_scene(100)
@@ -407,10 +487,19 @@ def multiprocess_worker(pid: int, nproc: int, port: int, out: str, backend: str,
     torch.cuda.synchronize()
     gathered = {}
     for name, run in runs_across_processes(dev).items():
+        huge = obj_mesh_of(name) is not None
+        pmesh = obj_meshes[obj_mesh_of(name)] if huge else mesh
+        if huge:  # a short run first too: it takes the warm-up
+            short_ms = timed(lambda: run(pmesh, HUGE_SHORT))[1]
         F.fused_mh_cuda.launches = F.fused_chains_reference.calls = 0
-        got, ms = timed(lambda: run(mesh))
+        got, ms = timed(lambda: run(pmesh))
         res["programs"][name] = dict(call_ms=ms, launches=F.fused_mh_cuda.launches,
                                      plain_calls=F.fused_chains_reference.calls)
+        if huge:
+            short_ms = min(short_ms, timed(lambda: run(pmesh, HUGE_SHORT))[1])
+            res["programs"][name].update(
+                short_call_ms=short_ms, rows=got["rows"].tolist(),
+                ms_per_step=(ms - short_ms) / (HUGE_STEPS - HUGE_SHORT))
         gathered[name] = {k: (v if k in SCALAR_OUTPUTS else process_allgather(v)).cpu()
                           for k, v in got.items()}
     if "jax" in sys.modules or "mh_tpu" in sys.modules:
@@ -1195,8 +1284,13 @@ def run_main_path(name, spec, cfg, device, counters):
     res = suggest_layouts(spec, cfg, key=0, **kw)
     (kernel, _), (plain, _) = counters
     launches, plain_calls = kernel.launches, plain.calls
-    if launches < 1 or plain_calls:
-        raise AssertionError(f"{name}: {launches} kernel launches, {plain_calls} plain calls")
+    # on a host with several cards the call spans them all where they divide
+    # the chains, one launch per card
+    cards = torch.cuda.device_count()
+    shards = cards if cards > 1 and cfg.n_chains % cards == 0 else 1
+    if launches != shards or plain_calls:
+        raise AssertionError(f"{name}: {launches} kernel launches on {shards} shards, "
+                             f"{plain_calls} plain calls")
     if not (torch.isfinite(torch.as_tensor(res.costs)).all()
             and torch.isfinite(torch.as_tensor(res.points)).all()):
         raise AssertionError(f"{name} returned non-finite values")
@@ -1212,7 +1306,8 @@ def run_main_path(name, spec, cfg, device, counters):
         raise AssertionError(f"{name}: two runs with one seed differ")
     say(name, objs=spec.n_objs, chains=cfg.n_chains, steps=cfg.iterations,
         moves_per_step=cfg.n_moves_per_step, accept_draws=cfg.accept_draws,
-        device="default" if device is None else device, launches=launches,
+        device="default" if device is None else device, cards=cards, shards=shards,
+        launches=launches,
         plain_calls=plain_calls, mean_accept=acc, breakdown_vs_cost_terms_max_abs=self_err,
         mean_total=float(res.costs[:, 0].mean()), deterministic=True)
     return launches
@@ -1432,6 +1527,14 @@ def main(argv=None) -> int:
             if got != want:
                 raise AssertionError(f"pi hits {got} != plain {want} at seed={seed} total={total}")
             say("pi_kernel_vs_plain", seed=seed, samples=total, hits=got, exact=True)
+        # the plain estimator draws the threefry stream: the card's estimate
+        # is the CPU's
+        plain_card, plain_card_ms = timed(lambda: mh_tpu_torch.estimate_pi(0, 1 << 22))
+        plain_cpu = mh_tpu_torch.estimate_pi(0, 1 << 22, device="cpu")
+        if plain_card != plain_cpu:
+            raise AssertionError(f"estimate_pi on the card {plain_card} != the CPU's {plain_cpu}")
+        say("pi_plain_card_vs_cpu", seed=0, samples=1 << 22, card=plain_card, cpu=plain_cpu,
+            equal=True, card_call_ms=plain_card_ms)
         P.pi_hits_cuda.launches = 0
         P.pi_hits_reference.calls = 0
         out = io.StringIO()
@@ -1614,8 +1717,8 @@ def main(argv=None) -> int:
         # the fused kernel, once per shard keyed by its first global chain
         for name, rspec, rcfg in (("parity", head, cfg), ("fixed_weighted", fixed_head, fixed_cfg),
                                   ("block", head, dataclasses.replace(cfg, **BLOCK))):
-            def one_call():
-                return suggest_layouts(rspec, rcfg, key=0, engine="fused", device="cuda")
+            def one_call():  # one launch on card 0, on a host with any number of cards
+                return suggest_layouts(rspec, rcfg, key=0, engine="fused", mesh=mesh1)
 
             zero_counts()
             want = one_call()
@@ -1636,7 +1739,9 @@ def main(argv=None) -> int:
                 if launches != shards or plain or differ:
                     raise AssertionError(f"sharded fused {name} on {mname}: {launches} launches, "
                                          f"{plain} plain calls, {differ} chains differ")
-                say("sharded_fused", path=name, mesh=mname, shards=shards, objs=100,
+                say("sharded_fused", path=name, mesh=mname, shards=shards,
+                    cards=torch.cuda.device_count(), devices=[str(d) for d in mesh.devices.flat],
+                    objs=100,
                     chains=rcfg.n_chains, steps=rcfg.iterations, mode=rcfg.mode.name,
                     moves_per_step=rcfg.n_moves_per_step, accept_draws=rcfg.accept_draws,
                     launches=launches, plain_calls=plain, chains_differing=differ,
@@ -1701,40 +1806,60 @@ def main(argv=None) -> int:
                 call_ms=b_ms, one_shard_call_ms=a_ms, card=smi)
 
         # a scene past the kernel's object limit: the objective row-sharded
-        # over 4 objs shards of card 0, against the unsharded torch engine
-        huge = demo_scene(4096)
-        huge_scene = huge.build(device=dev)
-        hcfg = SamplerConfig(iterations=10, n_chains=2)
-        if F.kernel_takes(hcfg, 4096, int((huge_scene.clr_mask > 0).sum()), False):
-            raise AssertionError("the fused kernel takes 4,096 objects; pick a larger scene")
-        zero_counts()
-        got, got_ms = timed(lambda: suggest_layouts(huge, hcfg, key=0, objs_devices=4,
-                                                    device="cuda"))
-        if any(read_counts().values()):
-            raise AssertionError(f"the objs-sharded run launched a kernel: {read_counts()}")
-        want, want_ms = timed(lambda: suggest_layouts(huge, hcfg, key=0, engine="torch",
-                                                      device="cuda"))
-        if not np.array_equal(got.accept_rate, want.accept_rate):
-            raise AssertionError(f"objs-sharded accepts {got.accept_rate} != {want.accept_rate}")
-        np.testing.assert_allclose(got.points, want.points, rtol=1e-4, atol=1e-4)
-        ref = cost_terms(torch.as_tensor(got.points, device=dev), huge_scene,
-                         hcfg.mode).total.cpu().numpy()
-        np.testing.assert_allclose(got.costs[:, 0], ref, rtol=1e-4, atol=1e-2)
-        short = dataclasses.replace(hcfg, iterations=2)
-        _, short_ms = timed(lambda: suggest_layouts(huge, short, key=0, objs_devices=4,
-                                                    device="cuda"))
-        say("sharded_objs", objs=4096, chains=hcfg.n_chains, steps=hcfg.iterations, objs_shards=4,
-            accept_rate=got.accept_rate.tolist(),
-            max_pose_gap=float(np.abs(got.points - want.points).max()),
-            total_vs_cost_terms_max_abs=float(np.abs(got.costs[:, 0] - ref).max()),
-            ms_per_step=(got_ms - short_ms) / (hcfg.iterations - short.iterations),
-            call_ms=got_ms, unsharded_call_ms=want_ms, card=smi)
+        # over 4 objs shards (one per card where the cards divide by 4, else
+        # all on card 0), against the unsharded torch engine, in PARITY and
+        # in weighted FIXED (both O(N^2) terms cross the reduction)
+        from mh_tpu_torch.api import _objs_mesh
+
+        huge = demo_scene(HUGE_OBJS)
+        objs_mesh = _objs_mesh(dev, 4)
+        for variant, hspec, mode in (
+                ("parity", huge, CostMode.PARITY),
+                ("fixed_weighted", dataclasses.replace(huge, w_offlimits=-1.5), CostMode.FIXED)):
+            huge_scene = hspec.build(device=dev)
+            hcfg = SamplerConfig(iterations=HUGE_STEPS, n_chains=HUGE_CHAINS, mode=mode)
+            if F.kernel_takes(hcfg, HUGE_OBJS, int((huge_scene.clr_mask > 0).sum()),
+                              mode is CostMode.FIXED):
+                raise AssertionError("the fused kernel takes 4,096 objects; pick a larger scene")
+            short = dataclasses.replace(hcfg, iterations=HUGE_SHORT)
+
+            def short_call():
+                return timed(lambda: suggest_layouts(hspec, short, key=0, objs_devices=4,
+                                                     device="cuda"))[1]
+
+            short_ms = short_call()  # first: it takes the cards' warm-up
+            zero_counts()
+            got, got_ms = timed(lambda: suggest_layouts(hspec, hcfg, key=0, objs_devices=4,
+                                                        device="cuda"))
+            if any(read_counts().values()):
+                raise AssertionError(f"the objs-sharded run launched a kernel: {read_counts()}")
+            want, want_ms = timed(lambda: suggest_layouts(hspec, hcfg, key=0, engine="torch",
+                                                          mesh=mesh1))
+            if not np.array_equal(got.accept_rate, want.accept_rate):
+                raise AssertionError(f"objs-sharded accepts {got.accept_rate} != {want.accept_rate}")
+            np.testing.assert_allclose(got.points, want.points, rtol=1e-4, atol=1e-4)
+            ref = cost_terms(torch.as_tensor(got.points, device=dev), huge_scene,
+                             hcfg.mode).total.cpu().numpy()
+            np.testing.assert_allclose(got.costs[:, 0], ref, rtol=1e-4, atol=1e-2)
+            short_ms = min(short_ms, short_call())
+            say("sharded_objs", variant=variant, objs=HUGE_OBJS, chains=hcfg.n_chains,
+                steps=hcfg.iterations, mode=mode.name, objs_shards=4,
+                cards=torch.cuda.device_count(), mesh_shape=objs_mesh.shape,
+                mesh_devices=[str(d) for d in objs_mesh.devices.flat],
+                accept_rate=got.accept_rate.tolist(),
+                max_pose_gap=float(np.abs(got.points - want.points).max()),
+                total_vs_cost_terms_max_abs=float(np.abs(got.costs[:, 0] - ref).max()),
+                ms_per_step=(got_ms - short_ms) / (hcfg.iterations - short.iterations),
+                call_ms=got_ms, unsharded_call_ms=want_ms, card=smi)
 
     if "multiprocess" in phases:
         # 13. runs across processes: 2 processes x 2 shards of card 0 on gloo
-        # (and, on a host with more cards, one process per card on nccl)
-        # against one launch (the fused kernel) or the in-process 4-shard
-        # mesh of phase sharded (the rest), bit for bit in every chain
+        # (and, on a host with more cards, 2 processes x 2 shards of a card
+        # each and 4 processes x 1 card on nccl) against one launch (the
+        # fused kernel) or the same mesh shape in this process on card 0
+        # (the rest), bit for bit in every chain
+        from mh_tpu_torch.parallel.objshard import chain_obj_mesh
+
         dev0 = torch.device("cuda", 0)
         mesh4, mesh1 = chain_mesh(devices=[dev0] * 4), chain_mesh(devices=[dev0])
         progs = runs_across_processes(dev)
@@ -1743,23 +1868,30 @@ def main(argv=None) -> int:
         if torch.cuda.device_count() > 1:
             layouts["card_each_2x2"] = ("nccl", [f"cuda:{i},cuda:{i}" for i in range(2)],
                                         "each process names a card of its own")
+        if torch.cuda.device_count() > 3:
+            layouts["card_each_4x1"] = ("nccl", [f"cuda:{i}" for i in range(4)],
+                                        "each process names a card of its own")
+        huge_short = {}  # row-sharded program -> in-process ms of the short run
         for lname, (backend, devs, why) in layouts.items():
+            nproc = len(devs)
             with tempfile.TemporaryDirectory() as tmp:
                 out, port = os.path.join(tmp, "gathered.pt"), free_port()
-                (_, so0, _), (_, so1, _) = spawn(
-                    [(["multiprocess", str(pid), "2", str(port), out, backend, devs[pid]],
-                      lambda rc: rc == 0) for pid in range(2)], env)
+                done = spawn(
+                    [(["multiprocess", str(pid), str(nproc), str(port), out, backend, devs[pid]],
+                      lambda rc: rc == 0) for pid in range(nproc)], env)
                 gathered = torch.load(out, weights_only=True)
-            res = [worker_result(so0), worker_result(so1)]
+            res = [worker_result(so) for _, so, _ in done]
             if any(r["backend"] != backend for r in res):
                 raise AssertionError(f"{lname}: asked for {backend}, got "
                                      f"{[r['backend'] for r in res]}")
-            say("multiprocess_backend", layout=lname, processes=2, backend=res[0]["backend"],
+            say("multiprocess_backend", layout=lname, processes=nproc, backend=res[0]["backend"],
                 reason=f"{res[0]['reason']}: {why}", shards=[r["shards"] for r in res],
-                devices=[r["devices"] for r in res])
+                devices=[r["devices"] for r in res],
+                obj_mesh_processes=res[0]["obj_mesh_processes"])
             for name, run in progs.items():
                 counts = [r["programs"][name] for r in res]
                 extra = {}
+                omesh = obj_mesh_of(name)
                 if name.startswith("fused"):
                     if name not in mesh4_runs:
                         mesh4_runs[name] = timed(lambda: run(mesh4))
@@ -1771,28 +1903,47 @@ def main(argv=None) -> int:
                     want, one_ms = mesh4_runs[name + "_one_launch"]
                     extra = dict(one_launch_call_ms=one_ms,
                                  chains_accepting=int((want["n_accept"] > 0).sum()))
-                    if any(c["launches"] != 2 or c["plain_calls"] for c in counts):
+                    if any(c["launches"] != len(r["shards"]) or c["plain_calls"]
+                           for c, r in zip(counts, res)):
                         raise AssertionError(f"{name} on {lname}: {counts}")
                 elif name not in mesh4_runs:
-                    mesh4_runs[name] = timed(lambda: run(mesh4))
+                    local = (mesh4 if omesh is None else
+                             chain_obj_mesh(*OBJ_MESHES[omesh], devices=[dev0] * 4))
+                    if omesh is not None:
+                        huge_short[name] = timed(lambda: run(local, HUGE_SHORT))[1]
+                    mesh4_runs[name] = timed(lambda: run(local))
+                    if omesh is not None:
+                        huge_short[name] = min(huge_short[name],
+                                               timed(lambda: run(local, HUGE_SHORT))[1])
                 if not name.startswith("fused"):
                     want = mesh4_runs[name][0]
                 got = gathered[name]
+                if omesh is not None:
+                    got, shared_rows = rows_once(got)
+                    extra = dict(
+                        mesh=OBJ_MESHES[omesh], objs=HUGE_OBJS, steps=HUGE_STEPS,
+                        rows_per_process=[c["rows"] for c in counts],
+                        rows_returned_by_several_processes=shared_rows,
+                        ms_per_step_per_process=[c["ms_per_step"] for c in counts],
+                        in_process_ms_per_step=(mesh4_runs[name][1] - huge_short[name])
+                        / (HUGE_STEPS - HUGE_SHORT),
+                        chains_accepting=int((want["n_accept"] > 0).sum()))
                 if set(got) != set(want):
                     raise AssertionError(f"{name}: outputs {sorted(got)} against {sorted(want)}")
                 rows = [k for k in want if k not in SCALAR_OUTPUTS]
-                differ = _chains_differing([(got[k], want[k]) for k in rows], len(want["pose"]))
+                differ = _chains_differing([(got[k], want[k]) for k in rows if k != "rows"],
+                                           len(want["pose"]))
                 scalars_equal = all(torch.equal(got[k], want[k].cpu())
-                                    for k in want if k in SCALAR_OUTPUTS)
+                                    for k in want if k in SCALAR_OUTPUTS or k == "rows")
                 if differ or not scalars_equal:
                     raise AssertionError(f"{name} on {lname}: {differ} chains differ, scalar "
                                          f"outputs equal: {scalars_equal}")
-                say("multiprocess", layout=lname, program=name, chains=len(want["pose"]),
-                    chains_differing=differ, bitwise=True,
-                    launches_per_process=[c["launches"] for c in counts],
+                say("multiprocess", layout=lname, backend=backend, processes=nproc,
+                    program=name, chains=len(want["pose"]), chains_differing=differ,
+                    bitwise=True, launches_per_process=[c["launches"] for c in counts],
                     plain_calls=[c["plain_calls"] for c in counts],
                     call_ms_per_process=[c["call_ms"] for c in counts],
-                    in_process_4_shards_call_ms=mesh4_runs[name][1], **extra, card=smi)
+                    in_process_call_ms=mesh4_runs[name][1], **extra, card=smi)
 
     if "recovery" in phases:
         # 14. kill and resume: the torch engine on the card at 100 objects x

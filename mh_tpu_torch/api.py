@@ -17,8 +17,8 @@ from mh_tpu_torch.kernels.fused_mh import (
     kernel_takes, run_chains_fused, run_chains_fused_sharded, tracks_off,
 )
 from mh_tpu_torch.models.scene import Scene, SceneSpec
-from mh_tpu_torch.parallel.mesh import CHAINS_AXIS, chain_mesh
-from mh_tpu_torch.parallel.objshard import OBJS_AXIS, chain_obj_mesh, run_chains_objsharded
+from mh_tpu_torch.parallel.mesh import CHAINS_AXIS, Mesh, chain_mesh
+from mh_tpu_torch.parallel.objshard import OBJS_AXIS, run_chains_objsharded
 from mh_tpu_torch.parallel.sharded import run_chains_sharded
 from mh_tpu_torch.sampler import prng
 from mh_tpu_torch.sampler.mh import (
@@ -188,9 +188,10 @@ def _dispatch_layouts(scene, cfg, key, pose0, engine, mesh, objs_devices, logger
         states = run_chains_objsharded(prng.key(key, device), pose0, scene, cfg, mesh)
         return _result_from_state(states, n_real), "torch_objsharded"
 
-    if mesh is None and device.type == "cuda" and torch.cuda.device_count() > 1 and (
-            cfg.n_chains % torch.cuda.device_count() == 0 and shared_pose0
-            and engine in ("auto", "fused", "torch")):
+    every_card = mesh is None and device.type == "cuda" and torch.cuda.device_count() > 1 and (
+        cfg.n_chains % torch.cuda.device_count() == 0 and shared_pose0
+        and engine in ("auto", "fused", "torch"))
+    if every_card:
         mesh = chain_mesh()
     if engine == "auto":
         n_clr = int(torch.sum(scene.clr_mask > 0))
@@ -220,10 +221,13 @@ def _dispatch_layouts(scene, cfg, key, pose0, engine, mesh, objs_devices, logger
         raise ValueError("mesh sharding supports one shared pose0 (f32[N, 6]); per-chain "
                          "starts need the unsharded engine='torch'")
     tkey = prng.key(key, device)
-    if mesh is not None:
-        states = run_chains_sharded(tkey, pose0, scene, cfg, mesh)
-    elif logger is not None and log_every > 0:
+    if logger is not None and log_every > 0 and (mesh is None or every_card):
+        # rounds of the unsharded engine, as mh_tpu logs where the caller
+        # passed no mesh: bitwise the sharded run (chains are keyed by
+        # global index)
         states = _run_logged(scene, cfg, tkey, pose0, logger, log_every, engine == "torch_graph")
+    elif mesh is not None:
+        states = run_chains_sharded(tkey, pose0, scene, cfg, mesh)
     elif engine == "torch":
         states, _ = run_chains(tkey, pose0, scene, cfg)
     else:
@@ -231,13 +235,16 @@ def _dispatch_layouts(scene, cfg, key, pose0, engine, mesh, objs_devices, logger
     return _result_from_state(states, n_real), engine
 
 
-def _objs_mesh(device: torch.device, k: int):
-    """``k`` objs shards: over every card where their count is a multiple
-    of ``k`` (chains split over the groups), else all on ``device``."""
+def _objs_mesh(device: torch.device, k: int) -> Mesh:
+    """``k`` objs shards in this process: over every card where their count
+    is a multiple of ``k`` (chains split over the groups), else all on
+    ``device``."""
     if device.type == "cuda" and torch.cuda.device_count() % k == 0:
         n = torch.cuda.device_count()
-        return chain_obj_mesh(n // k, k)
-    return chain_obj_mesh(1, k, devices=[device] * k)
+        devices = [torch.device("cuda", i) for i in range(n)]
+    else:
+        n, devices = k, [device] * k
+    return Mesh(np.array(devices, dtype=object).reshape(n // k, k), (CHAINS_AXIS, OBJS_AXIS))
 
 
 def _result_from_state(states, n_real: int) -> LayoutResult:

@@ -3,14 +3,19 @@
 The re-creation of the NVIDIA ``MC_EstimatePiInlineP`` sample (SURVEY.md
 B10; BASELINE.md measurement config 1): draw uniform points in the unit
 square; the fraction inside the quarter disc estimates pi/4. The points
-come from a ``torch.Generator`` seeded explicitly, in fixed-size batches,
-so the same seed gives the same estimate on one device. The hand-written
-CUDA kernel for the same job is :mod:`mh_tpu_torch.kernels.pi_kernel`.
+come from the layout sampler's threefry stream (:mod:`mh_tpu_torch.sampler.prng`),
+batch ``i`` drawn as ``uniform(fold_in(key(seed), i), (batch, 2))``, as
+``mh_tpu`` draws them: the same seed gives ``mh_tpu``'s points on any
+device. Hits are counted exactly, as int64 (``mh_tpu`` counts in float32,
+which drops low bits past 2^24 hits). The hand-written CUDA kernel for the
+same job is :mod:`mh_tpu_torch.kernels.pi_kernel`.
 """
 
 from __future__ import annotations
 
 import torch
+
+from mh_tpu_torch.sampler import prng
 
 
 def estimate_pi(seed: int, n_samples: int = 1 << 20, batch: int = 1 << 16,
@@ -28,9 +33,9 @@ def estimate_pi(seed: int, n_samples: int = 1 << 20, batch: int = 1 << 16,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
     n_batches = -(-n_samples // batch)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    key = prng.key(seed, device)
     hits = torch.zeros((), dtype=torch.int64, device=device)
-    for _ in range(n_batches):
-        pts = torch.rand(batch, 2, generator=gen, device=device)
+    for i in range(n_batches):
+        pts = prng.uniform(prng.fold_in(key, i), (batch, 2))
         hits += torch.count_nonzero(torch.sum(torch.square(pts), dim=1) <= 1.0)
     return 4.0 * int(hits) / (n_batches * batch)

@@ -20,7 +20,10 @@ after :func:`~mh_tpu_torch.parallel.multihost.initialize`) runs the same
 collectives over ``torch.distributed``: :func:`psum` and :func:`pmax`
 gather every shard's partial (``dist.all_gather``) and reduce them in the
 same global shard order, so they give one process's bits (never
-``dist.all_reduce``, whose ring order is not shard order);
+``dist.all_reduce``, whose ring order is not shard order). They reduce
+over the chains axis; :func:`psum` also over another axis of a 1-D mesh
+(the row-sharded objective's objs axis, one chain row's shards) within the
+process group of the processes that own its shards (:func:`process_group`);
 :func:`all_gather` joins the gathered parts in shard order; and
 :func:`ppermute` copies the pairs whose two shards live in one process
 and sends the others with ``dist.batch_isend_irecv``. On the ``gloo``
@@ -177,51 +180,78 @@ def concat(parts: list[Tensor]) -> Tensor:
 
 def _staged(t: Tensor) -> Tensor:
     """``t`` as the process group's backend takes it: gloo moves CUDA
-    tensors through host memory, NCCL takes them where they are."""
-    return t.cpu() if dist.get_backend() == "gloo" else t
+    tensors through host memory, NCCL takes them where they are (a CPU
+    tensor through this process's current card)."""
+    if dist.get_backend() == "gloo":
+        return t.cpu()
+    return t if t.is_cuda else t.to(torch.device("cuda", torch.cuda.current_device()))
 
 
-def gather_processes(t: Tensor, sizes: list[int] | None = None) -> list[Tensor]:
+def gather_processes(t: Tensor, sizes: list[int] | None = None, group=None) -> list[Tensor]:
     """Every process's ``t`` in process order, each on ``t``'s device.
 
     The leading sizes may differ (``sizes``: each process's, exchanged
     where not given): each process pads its ``t`` to the largest, and
-    ``dist.all_gather`` hands every process every padded copy."""
-    world = dist.get_world_size()
+    ``dist.all_gather`` hands every process every padded copy. ``group``:
+    the processes taking part (:func:`process_group`), default all."""
+    world = dist.get_world_size(group)
     if sizes is None:
         sizes = [None] * world
-        dist.all_gather_object(sizes, t.shape[0])
+        dist.all_gather_object(sizes, t.shape[0], group=group)
     mine = t.contiguous()
     if t.shape[0] < max(sizes):
         mine = torch.cat([mine, mine.new_zeros((max(sizes) - t.shape[0], *t.shape[1:]))])
     mine = _staged(mine)
     parts = [torch.empty_like(mine) for _ in range(world)]
-    dist.all_gather(parts, mine)
+    dist.all_gather(parts, mine, group=group)
     return [p[:n].to(t.device) for p, n in zip(parts, sizes)]
 
 
-def _spanning(mesh: Mesh | None) -> list[int] | None:
-    """The processes of the chains shards where the mesh spans processes
-    (every process of the group must own a shard), else None."""
+_GROUPS: dict = {}  # sorted ranks -> process group, for the default group in "world"
+
+
+def process_group(ranks):
+    """The process group of ``ranks``: None (the default group) where they
+    are every process, else a ``dist.new_group`` made at the first call and
+    kept. ``dist.new_group`` is collective over every process, members or
+    not: every process calls this with the same ranks in the same order."""
+    ranks = tuple(sorted(set(int(r) for r in ranks)))
+    if ranks == tuple(range(dist.get_world_size())):
+        return None
+    if _GROUPS.get("world") is not dist.group.WORLD:  # a new default group
+        _GROUPS.clear()
+        _GROUPS["world"] = dist.group.WORLD
+    if ranks not in _GROUPS:
+        _GROUPS[ranks] = dist.new_group(list(ranks))
+    return _GROUPS[ranks]
+
+
+def _spanning(mesh: Mesh | None, axis: str = CHAINS_AXIS, group=None) -> list[int] | None:
+    """The processes of ``axis``'s shards where the mesh spans processes
+    (every process of ``group``, default all, must own a shard), else None."""
     if mesh is None or not mesh.spans_processes:
         return None
-    procs = mesh.axis_processes(CHAINS_AXIS)
-    if set(procs) != set(range(dist.get_world_size())):
-        raise ValueError(f"a mesh whose {CHAINS_AXIS} shards live in processes "
-                         f"{sorted(set(procs))} leaves out some of the "
-                         f"{dist.get_world_size()} processes")
+    procs = mesh.axis_processes(axis)
+    members = (range(dist.get_world_size()) if group is None
+               else dist.get_process_group_ranks(group))
+    if set(procs) != set(members):
+        raise ValueError(f"a mesh whose {axis} shards live in processes {sorted(set(procs))} "
+                         f"does not match the {len(members)} processes {sorted(members)} "
+                         "of its process group")
     return procs
 
 
-def _gather_shards(parts: list[Tensor], procs: list[int]) -> list[Tensor]:
+def _gather_shards(parts: list[Tensor], procs: list[int], group=None) -> list[Tensor]:
     """Every shard's part, in global shard order, on ``parts[0]``'s device:
-    each process's parts stacked and gathered (:func:`gather_processes`);
-    the mesh says which process holds which shard, so nothing else travels."""
-    world = dist.get_world_size()
+    each process's parts stacked and gathered within ``group``
+    (:func:`gather_processes`); the mesh says which process holds which
+    shard, so nothing else travels."""
+    members = sorted(set(procs))  # the group's ranks, in its order
     home = parts[0].device
     stacks = gather_processes(torch.stack([p.to(home) for p in parts]),
-                              [procs.count(r) for r in range(world)])
-    seen = [0] * world
+                              [procs.count(r) for r in members], group)
+    stacks = dict(zip(members, stacks))
+    seen = dict.fromkeys(members, 0)
     out = []
     for r in procs:
         out.append(stacks[r][seen[r]])
@@ -229,26 +259,31 @@ def _gather_shards(parts: list[Tensor], procs: list[int]) -> list[Tensor]:
     return out
 
 
-def _reduce(parts: list[Tensor], op, mesh: Mesh | None) -> list[Tensor]:
-    procs = _spanning(mesh)
-    every = parts if procs is None else _gather_shards(parts, procs)
+def _reduce(parts: list[Tensor], op, mesh: Mesh | None, axis: str, group) -> list[Tensor]:
+    procs = _spanning(mesh, axis, group)
+    every = parts if procs is None else _gather_shards(parts, procs, group)
     acc = every[0]
     for p in every[1:]:
         acc = op(acc, p.to(acc.device))
     return [acc.to(p.device) for p in parts]
 
 
-def psum(parts: list[Tensor], mesh: Mesh | None = None) -> list[Tensor]:
-    """The sum over ``mesh``'s chains shards, added in global shard order;
-    every shard of this process gets the same bits (one shard: its own
-    tensor). ``parts``: this process's shards' tensors in shard order;
-    without a mesh, or on a mesh within this process, every shard's."""
-    return _reduce(parts, torch.add, mesh)
+def psum(parts: list[Tensor], mesh: Mesh | None = None, axis: str = CHAINS_AXIS,
+         group=None) -> list[Tensor]:
+    """The sum over ``mesh``'s shards along ``axis``, added in global shard
+    order; every shard of this process gets the same bits (one shard: its
+    own tensor). ``parts``: this process's shards' tensors in shard order;
+    without a mesh, or on a mesh within this process, every shard's. Where
+    the mesh spans processes, ``group`` is the process group of the
+    processes that own ``axis``'s shards (:func:`process_group`; default
+    every process)."""
+    return _reduce(parts, torch.add, mesh, axis, group)
 
 
 def pmax(parts: list[Tensor], mesh: Mesh | None = None) -> list[Tensor]:
-    """The maximum over shards, on every shard (``parts`` as :func:`psum`)."""
-    return _reduce(parts, torch.maximum, mesh)
+    """The maximum over the chains shards, on every shard (``parts`` as
+    :func:`psum`)."""
+    return _reduce(parts, torch.maximum, mesh, CHAINS_AXIS, None)
 
 
 def all_gather(parts: list[Tensor], mesh: Mesh | None = None) -> list[Tensor]:

@@ -5,11 +5,14 @@ the way PyTorch users run several cards, one process per card or several
 processes sharing one (``torchrun --nproc-per-node K``, or
 :func:`initialize` by hand). Call :func:`initialize` once per process
 before any collective, build the mesh over every process's devices with
-:func:`global_chain_mesh`, and call the sharded runners
-(:mod:`mh_tpu_torch.parallel.sharded`, ``run_chains_fused_sharded``,
-``run_tempered``, ``run_smc``) in every process: each steps its own
-shards, every chain keyed by its global index, so the result is bitwise
-that of one process on the same shards.
+:func:`global_chain_mesh` (or, for the row-sharded objective,
+:func:`~mh_tpu_torch.parallel.objshard.obj_mesh` /
+:func:`~mh_tpu_torch.parallel.objshard.chain_obj_mesh`), and call the
+sharded runners (:mod:`mh_tpu_torch.parallel.sharded`,
+``run_chains_fused_sharded``, ``run_tempered``, ``run_smc``,
+``run_chains_objsharded``, ``cost_terms_sharded``) in every process: each
+steps its own shards, every chain keyed by its global index, so the result
+is bitwise that of one process on the same shards.
 
 The backend: ``nccl`` where no card is named by two processes, ``gloo``
 otherwise (NCCL refuses two ranks on one card) and where there is no card.
@@ -111,9 +114,8 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
     return chosen
 
 
-def global_chain_mesh(devices=None) -> Mesh:
-    """A 1-D mesh over every process's devices, chains split along its
-    chains axis: process 0's shards, then process 1's, and so on.
+def global_devices(devices=None) -> tuple[list[torch.device], list[int] | None]:
+    """Every process's shards, process 0's first, and the rank owning each.
 
     ``devices`` (names or ``torch.device``, repeats allowed) are this
     process's shards. Without it a process on ``nccl`` takes its own card
@@ -121,16 +123,15 @@ def global_chain_mesh(devices=None) -> Mesh:
     as :func:`~mh_tpu_torch.parallel.mesh.chain_mesh` does. Every process
     must call it (the device lists are exchanged). Under ``nccl`` a card
     named by two processes raises (initialize with ``backend="gloo"`` to
-    share cards). Without a process group it is
-    ``chain_mesh(devices=devices)``.
-    """
+    share cards). Without a process group: this process's devices, and
+    None for the ranks."""
     on_nccl = dist.is_initialized() and dist.get_backend() == "nccl"
     if devices is None:
         devices = ([torch.device("cuda", torch.cuda.current_device())] if on_nccl
                    else cuda_devices(None))
     devices = [torch.device(d) for d in devices]
     if not dist.is_initialized():
-        return Mesh(np.array(devices, dtype=object), (CHAINS_AXIS,))
+        return devices, None
     lists = [None] * dist.get_world_size()
     dist.all_gather_object(lists, (socket.gethostname(), [str(d) for d in devices]))
     if on_nccl:
@@ -144,9 +145,18 @@ def global_chain_mesh(devices=None) -> Mesh:
                                      f"{host}: nccl cannot put two ranks on one card "
                                      "(initialize with backend='gloo' to share it)")
     flat = [(torch.device(n), rank) for rank, (_, names) in enumerate(lists) for n in names]
-    devs = np.empty(len(flat), dtype=object)
-    devs[:] = [d for d, _ in flat]
-    return Mesh(devs, (CHAINS_AXIS,), processes=np.array([r for _, r in flat]))
+    return [d for d, _ in flat], [r for _, r in flat]
+
+
+def global_chain_mesh(devices=None) -> Mesh:
+    """A 1-D mesh over every process's devices, chains split along its
+    chains axis: process 0's shards, then process 1's, and so on
+    (:func:`global_devices`; every process must call it). Without a
+    process group it is ``chain_mesh(devices=devices)``."""
+    devices, ranks = global_devices(devices)
+    devs = np.empty(len(devices), dtype=object)
+    devs[:] = devices
+    return Mesh(devs, (CHAINS_AXIS,), processes=ranks)
 
 
 def process_allgather(t: Tensor) -> Tensor:

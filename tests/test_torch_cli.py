@@ -120,6 +120,15 @@ def test_cli_demo_pi_and_devices(capsys):
     assert "devices" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("seed", [0, 7])
+def test_cli_pi_prints_mh_tpu_estimate(seed, capsys):
+    args = ["pi", "--seed", str(seed), "--samples", str(1 << 18)]
+    assert jax_cli.main(args) == 0
+    want = capsys.readouterr().out
+    assert cli.main([*args, "--device", "cpu"]) == 0
+    assert capsys.readouterr().out == want and "pi ~=" in want
+
+
 def test_cli_suggest_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(mh_tpu_torch.api.torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -34,6 +34,14 @@ def cuda():
     return torch.device("cuda")
 
 
+def every_card_launches(n_chains: int) -> int:
+    """The fused launches of one ``suggest_layouts`` call on the card: one
+    per card where the host's cards divide the chains (the call spans them
+    all), else one."""
+    k = torch.cuda.device_count()
+    return k if k > 1 and n_chains % k == 0 else 1
+
+
 def test_uniform_block_bits(cuda):
     for seed, counter, first in ((0, 0, 0), (7, 3, 40), (-5, 999, 1 << 20)):
         got = TF.uniform_block_cuda(seed, counter, first, 64, cuda)
@@ -184,11 +192,19 @@ def test_estimate_pi_defaults_to_cuda(cuda):
     assert abs(mh_tpu_torch.estimate_pi(0, n_samples=n) - math.pi) < 6 * sigma
 
 
+@pytest.mark.parametrize("seed", [0, 7])
+def test_estimate_pi_on_card_equals_cpu(cuda, seed):
+    """The plain estimator draws the threefry stream, whose bits are the
+    same on the card and the CPU: the same hits, the same estimate."""
+    assert mh_tpu_torch.estimate_pi(seed, 1 << 22) == mh_tpu_torch.estimate_pi(
+        seed, 1 << 22, device="cpu")
+
+
 def test_spec_runs_on_cuda_by_default(cuda):
     launches, calls = TF.fused_mh_cuda.launches, TF.fused_chains_reference.calls
     res = mh_tpu_torch.suggest_layouts(
         mh_tpu_torch.demo_scene(10), mh_tpu_torch.SamplerConfig(iterations=20, n_chains=4))
-    assert TF.fused_mh_cuda.launches == launches + 1
+    assert TF.fused_mh_cuda.launches == launches + every_card_launches(4)
     assert TF.fused_chains_reference.calls == calls
     assert res.costs.shape == (4, 8)
 
@@ -256,7 +272,7 @@ def test_auto_on_card_launches_the_fused_kernel(cuda):
     launches = TF.fused_mh_cuda.launches
     res = mh_tpu_torch.suggest_layouts(
         mh_tpu_torch.demo_scene(16), mh_tpu_torch.SamplerConfig(iterations=10, n_chains=8))
-    assert TF.fused_mh_cuda.launches == launches + 1
+    assert TF.fused_mh_cuda.launches == launches + every_card_launches(8)
     assert res.accept_rate.dtype.name == "float64"
 
 
@@ -324,6 +340,30 @@ def test_kernels_launch_on_the_tensors_card(cuda):
         assert torch.equal(g.cpu(), w.cpu()) and torch.equal(b.cpu(), w.cpu())
     assert torch.equal(uni.cpu(), TF.uniform_block(7, 3, 40, 64))
     assert hits == TP.pi_hits_reference(0, 1 << 22)
+
+
+@pytest.mark.parametrize("mode,w_off", [("PARITY", 0.0), ("FIXED", -1.5)])
+def test_objsharded_over_every_card_equals_one_card(cuda, mode, w_off):
+    """The row-sharded objective with one objs shard per card equals the
+    same mesh shape on card 0 alone bit for bit: each card scores its rows,
+    the partials add in shard order on the row's first card."""
+    k = torch.cuda.device_count()
+    if k < 2:
+        pytest.skip("needs a second card")
+    from mh_tpu_torch.parallel.objshard import chain_obj_mesh, run_chains_objsharded
+    from mh_tpu_torch.sampler import prng
+
+    spec = dataclasses.replace(mh_tpu_torch.demo_scene(64 * k), w_offlimits=w_off)
+    scene, pose0 = spec.build(device=cuda), spec.initial_pose(device=cuda)
+    cfg = mh_tpu_torch.SamplerConfig(iterations=20, n_chains=4, mode=mh_tpu_torch.CostMode[mode],
+                                     beta=1e-3)
+    every = run_chains_objsharded(prng.key(3, cuda), pose0, scene, cfg, chain_obj_mesh(1, k))
+    one = run_chains_objsharded(prng.key(3, cuda), pose0, scene, cfg,
+                                chain_obj_mesh(1, k, devices=[torch.device("cuda", 0)] * k))
+    for f in ("pose", "n_accept", "step", "key", "log_scale"):
+        assert torch.equal(getattr(every, f), getattr(one, f)), f
+    assert torch.equal(every.costs.as_vector(), one.costs.as_vector())
+    assert (one.n_accept > 0).all()
 
 
 def test_checkpoint_on_card_resumes_bitwise(cuda, tmp_path):

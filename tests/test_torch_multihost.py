@@ -338,8 +338,9 @@ def test_a_local_mesh_stays_local_in_any_rank(monkeypatch):
 
 
 def test_paths_that_stay_in_one_process_raise_on_a_spanning_mesh():
-    from mh_tpu_torch.parallel.objshard import cost_terms_sharded, run_chains_objsharded
-
+    """suggest_layouts reads every chain in the calling process, so it
+    refuses a mesh that spans processes (the row-sharded objective runs on
+    one: tests/test_torch_objshard_multihost.py)."""
     spec = mh_tpu_torch.demo_scene(8)
     scene, p0 = spec.build(), spec.initial_pose()
     cfg = mh_tpu_torch.SamplerConfig(iterations=1, n_chains=2)
@@ -348,9 +349,7 @@ def test_paths_that_stay_in_one_process_raise_on_a_spanning_mesh():
         mh_tpu_torch.suggest_layouts(spec, cfg, mesh=span, device="cpu")
     objs = PM.Mesh(np.array(["cpu"] * 2, dtype=object), ("objs",), processes=[0, 1])
     with pytest.raises(ValueError, match="one process"):
-        cost_terms_sharded(p0[None], scene, objs)
-    with pytest.raises(ValueError, match="one process"):
-        run_chains_objsharded(prng.key(0), p0, scene, cfg, objs)
+        mh_tpu_torch.suggest_layouts(spec, cfg, mesh=objs, device="cpu")
     with pytest.raises(ValueError, match="divisible"):
         run_chains_sharded(prng.key(0), p0, scene, mh_tpu_torch.SamplerConfig(n_chains=3),
                            PM.Mesh(np.array(["cpu"] * 2, dtype=object), ("chains",),

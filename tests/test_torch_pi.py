@@ -6,8 +6,11 @@ port is held to: pi within 6 sigma of the binomial error, agreement with
 ``mh_tpu.estimate_pi`` within the combined 6 sigma of both estimates, the
 same sample count as ``mh_tpu``'s kernel for the same arguments, and exact
 hit counts of its plain version against an independent numpy count of the
-same counter hash. tests/test_torch_cuda.py holds the CUDA kernel's counts
-to the plain version's exactly.
+same counter hash. The plain ``estimate_pi`` draws ``mh_tpu``'s threefry
+points, so it equals ``mh_tpu.estimate_pi`` exactly wherever both count
+exactly (under 2^24 hits, over a power-of-two total).
+tests/test_torch_cuda.py holds the CUDA kernel's counts to the plain
+version's exactly, and the card's plain estimate to the CPU's.
 """
 
 from __future__ import annotations
@@ -83,6 +86,15 @@ def test_agrees_with_mh_tpu_estimate_pi(seed):
     for got in (mh_tpu_torch.estimate_pi(seed, n_samples=n, device="cpu"),
                 TP.estimate_pi_fused(seed, n, device="cpu")[0]):
         assert abs(got - want) < 6 * math.sqrt(2) * sigma(n)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("n,batch", [(1 << 16, 1 << 12), (1 << 18, 1 << 16)])
+def test_estimate_pi_equals_mh_tpu_exactly(seed, n, batch):
+    """Batch i is mh_tpu's ``uniform(fold_in(key, i), (batch, 2))``: the
+    same hits, and (under 2^24 hits, a power-of-two total) the same float."""
+    want = float(mh_tpu.estimate_pi(jax.random.key(seed), n, batch))
+    assert mh_tpu_torch.estimate_pi(seed, n, batch, device="cpu") == want
 
 
 @pytest.mark.parametrize("n,grid", [(1, 8), (1 << 18, 8), ((1 << 18) + 1, 8),
