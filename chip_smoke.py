@@ -62,7 +62,12 @@ non-zero):
    stream); CUDA's transcendentals differ by ulps, so a chain whose accept
    ratio lands within an ulp of its uniform may part: at most 2 of the 64
    chains (every run so far read 0), the rest with equal accept counts,
-   poses within 1e-4 and costs within rtol=2e-4 / atol=2e-3;
+   poses within 1e-4 and costs within rtol=2e-4 / atol=2e-3; then a start
+   pose whose x and rotation columns are -0.0 through ``run_chains`` (one
+   move and (M, K) = (4, 4)) and ``run_chains_incremental`` (8 column
+   groups), held the same way, where every coordinate of the agreeing
+   chains that is zero on either device must be zero on both with the
+   same sign bit;
 10. main_path_torch: ``suggest_layouts(demo_scene(100), SamplerConfig(
    iterations=1000, n_chains=1024), key=0, engine="torch", device="cuda")``,
    then ``engine="torch_graph"`` (a CUDA graph, bitwise equal to torch),
@@ -187,7 +192,21 @@ non-zero):
 20. examples: ``python -m mh_tpu_torch.examples.demo_layout``,
    ``huge_scene`` (1024 objects on 4 row shards) and ``advanced_sampling``
    at small sizes, each a process on the card that must exit 0 and print
-   its results.
+   its results;
+21. incremental (run after item 10): ``run_chains_incremental(key 0,
+   demo_scene(100), 1024 chains, PARITY, n_groups=10)`` over 200 steps on
+   the card (the exact delta-cost chain; no hand-written kernel, as
+   ``mh_tpu``'s is an XLA scan): the carried val matrix, group maxima and
+   total must equal a fresh ``full_val_matrix`` / ``_group_max`` /
+   ``_cheap_total`` of the final poses bit for bit, the totals match
+   ``cost_terms`` (rtol=2e-4, atol=2e-3) and the cost trace ends on them;
+   chains 0-7 run again on the CPU must draw the same keys and uniforms
+   bit for bit, and at most 2 of them may part (accept count, or a pose
+   more than 1e-4 away; the count is printed). It prints ms per step (the
+   slope of CUDA-event time over 50 and 250 steps) beside the torch
+   engine's eager step timed the same way, kernels per step and the
+   device-busy share from ``torch.profiler`` (10 steps), and the peak
+   memory the run allocates.
 
 Three phases run only when named: ``slab_width`` (weighted FIXED by slab
 width), ``kernel_variants`` (the off-limits update against the rows
@@ -226,9 +245,10 @@ RTOL, ATOL = 2e-4, 2e-3
 POSE_ATOL, MAX_DIVERGENT_CHAINS, MAX_ROUNDS_DIFFERING = 1e-4, 2, 1
 COMPOUND_CASES = ((4, 1), (4, 4), (1, 16), (1, 30))  # (moves per step, accept draws)
 BLOCK = dict(n_moves_per_step=64, accept_draws=64)  # BASELINE config 3, layout_block
+BLOCK_4X4 = dict(n_moves_per_step=4, accept_draws=4)
 SWEEP_OBJECTS = (32, 100, 256, 512)
 PHASES = ("rng", "kernel_vs_plain", "main_path", "pi", "cli", "prng", "torch_engine_vs_cpu",
-          "main_path_torch", "tempering_smc", "sharded", "multiprocess", "recovery", "metrics",
+          "main_path_torch", "incremental", "tempering_smc", "sharded", "multiprocess", "recovery", "metrics",
           "time", "profile", "gradient", "native", "examples")
 # named only: weighted FIXED ms/step by slab width (the kernel takes the
 # width at launch), the measurement behind fused_mh.off_slab_width; the
@@ -265,6 +285,9 @@ SMC = dict(n_particles=64, n_stages=8, mutate_steps=5)
 # and multiprocess): objects, chains, steps, and the short run whose time
 # is taken off to give ms per step
 HUGE_OBJS, HUGE_CHAINS, HUGE_STEPS, HUGE_SHORT = 4096, 4, 10, 2
+# phase incremental: objects, chains, column groups (100 / 10 = 10 a group;
+# the default 8 does not divide 100) and steps
+INCREMENTAL = (100, 1024, 10, 200)
 # phase multiprocess's row-sharded programs and their (chains x objs) mesh
 # over the global shards: the objs axis across processes, the chains axis
 # across processes (the other programs take the 1-D chains mesh)
@@ -685,12 +708,16 @@ def check_self_consistent(pose, breakdown, scene, mode) -> float:
     return (breakdown - ref).abs().max().item()
 
 
-def states_agree(name: str, got, want) -> dict:
-    """A CUDA run of the torch engine against the same run on the CPU.
+def states_agree(name: str, got, want, costs=lambda s: s.costs.as_vector(),
+                 zero_signs: bool = False) -> dict:
+    """A CUDA run of the torch engine (or of the incremental chains, with
+    ``costs=lambda s: s.total[:, None]``) against the same run on the CPU.
 
     At most MAX_DIVERGENT_CHAINS chains may part; the rest have equal
     accept counts, poses within POSE_ATOL and costs within RTOL / ATOL.
-    Returns the fields a comparison line prints."""
+    With ``zero_signs``, every pose coordinate of those chains that is zero
+    on either device is zero on both, with the same sign bit. Returns the
+    fields a comparison line prints."""
     import torch
 
     gp, wp = got.pose.cpu(), want.pose.cpu()
@@ -700,14 +727,23 @@ def states_agree(name: str, got, want) -> dict:
     n_div = int((~same).sum())
     if n_div > MAX_DIVERGENT_CHAINS:
         raise AssertionError(f"{name}: {n_div} of {len(same)} chains part from the CPU run")
-    gc, wc = got.costs.as_vector().cpu(), want.costs.as_vector().cpu()
+    gc, wc = costs(got).cpu(), costs(want).cpu()
     torch.testing.assert_close(gc[same], wc[same], rtol=RTOL, atol=ATOL)
-    return dict(chains=len(same), accept_counts_differ=int(acc_differs.sum()),
-                divergent_chains=n_div, max_pose_gap=gap.max().item(),
-                max_pose_gap_agreeing=gap[same].max().item() if bool(same.any()) else 0.0,
-                max_cost_gap_agreeing=(gc[same] - wc[same]).abs().max().item()
-                if bool(same.any()) else 0.0,
-                chains_accepting=int((got.n_accept > 0).sum()))
+    out = dict(chains=len(same), accept_counts_differ=int(acc_differs.sum()),
+               divergent_chains=n_div, max_pose_gap=gap.max().item(),
+               max_pose_gap_agreeing=gap[same].max().item() if bool(same.any()) else 0.0,
+               max_cost_gap_agreeing=(gc[same] - wc[same]).abs().max().item()
+               if bool(same.any()) else 0.0,
+               chains_accepting=int((got.n_accept > 0).sum()))
+    if zero_signs:
+        g, w = gp[same], wp[same]
+        zero = (g == 0) | (w == 0)
+        if not (bool((g[zero] == 0).all()) and bool((w[zero] == 0).all()) and
+                torch.equal(torch.signbit(g[zero]), torch.signbit(w[zero]))):
+            raise AssertionError(f"{name}: zero coordinates or their signs differ from the CPU's")
+        out.update(zeros=int(zero.sum()), negative_zeros=int(torch.signbit(w[zero]).sum()),
+                   zero_signs_equal=True)
+    return out
 
 
 def same_bits(a, b) -> bool:
@@ -746,26 +782,18 @@ def state_chains_differing(a, b) -> int:
                              a.pose.shape[0])
 
 
-def profile_steps(scene, pose0, cfg, graph: bool, steps: int) -> dict:
-    """``torch.profiler`` over ``steps`` steps of the torch engine (eager, or
-    replayed as a CUDA graph), after two unprofiled steps: kernels per
-    step, device-busy share of the wall time, and the top kernels by
+def profile_run(run, steps: int) -> dict:
+    """``torch.profiler`` over ``run()``, which takes ``steps`` steps: kernels
+    per step, device-busy share of the wall time, and the top kernels by
     device time (per step, milliseconds)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from mh_tpu_torch.sampler import mh as M
-    from mh_tpu_torch.sampler import prng
-
-    step = M.ChainStep(scene, cfg)
-    advance = M.step_advance(step, graph)
-    state = advance(step.init(*M.chain_starts(prng.key(0, scene.device), pose0, scene,
-                                              cfg.n_chains)), 2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        advance(state, steps)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -778,6 +806,110 @@ def profile_steps(scene, pose0, cfg, graph: bool, steps: int) -> dict:
     return dict(steps=steps, wall_ms=wall_ms, kernels_per_step=len(kernels) / steps,
                 device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
                 top=[(k, n / steps, t / steps) for k, (n, t) in top])
+
+
+def profile_steps(scene, pose0, cfg, graph: bool, steps: int) -> dict:
+    """:func:`profile_run` over ``steps`` steps of the torch engine (eager,
+    or replayed as a CUDA graph), after two unprofiled steps."""
+    from mh_tpu_torch.sampler import mh as M
+    from mh_tpu_torch.sampler import prng
+
+    step = M.ChainStep(scene, cfg)
+    advance = M.step_advance(step, graph)
+    state = advance(step.init(*M.chain_starts(prng.key(0, scene.device), pose0, scene,
+                                              cfg.n_chains)), 2)
+    return profile_run(lambda: advance(state, steps), steps)
+
+
+def incremental_phase(smi: str) -> None:
+    """Phase incremental (docstring item 21): the incremental-symmetry
+    chains at full width on the card."""
+    import torch
+
+    from mh_tpu_torch import CostMode, SamplerConfig, cost_terms, demo_scene
+    from mh_tpu_torch.sampler import incremental as I
+    from mh_tpu_torch.sampler import mh as M
+    from mh_tpu_torch.sampler import prng
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    n, chains, groups, steps = INCREMENTAL
+    spec = demo_scene(n)
+    scene, pose0, key = spec.build(device=dev), spec.initial_pose(device=dev), prng.key(0, dev)
+    cfg = SamplerConfig(iterations=steps, n_chains=chains)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    state, trace = I.run_chains_incremental(key, pose0, scene, cfg, n_groups=groups,
+                                            trace_costs=True)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+
+    # the carried state equals a fresh evaluation of the final poses, bit for bit
+    fresh = I.full_val_matrix(state.pose, scene, CostMode.PARITY.pi)
+    gmax = I._group_max(fresh, groups)
+    total = I._cheap_total(state.pose, scene, CostMode.PARITY, I._sym_from_gmax(gmax, scene))
+    for name, carried, want in (("a_mat", state.a_mat, fresh), ("gmax", state.gmax, gmax),
+                                ("total", state.total, total)):
+        if not torch.equal(carried.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"incremental: the carried {name} differs from a fresh "
+                                 "evaluation")
+    if not (torch.isfinite(trace).all() and torch.equal(trace[:, -1], state.total)):
+        raise AssertionError("incremental: the cost trace is not finite or ends elsewhere")
+    acc = float((state.n_accept.float() / steps).mean())
+    accepting = int((state.n_accept > 0).sum())
+    if not 0.0 < acc < 1.0 or accepting < chains // 2:
+        raise AssertionError(f"incremental: mean accept rate {acc}, {accepting} chains accepting")
+    ref = cost_terms(state.pose, scene, CostMode.PARITY).total
+    torch.testing.assert_close(state.total, ref, rtol=RTOL, atol=ATOL)
+
+    # chains 0-7 again on the CPU: the same keys and uniforms, poses within POSE_ATOL
+    few = 8
+    cstate, _ = I.run_chains_incremental(prng.key(0), spec.initial_pose(), spec.build(),
+                                         dataclasses.replace(cfg, n_chains=few), n_groups=groups)
+    at = torch.arange(steps)
+
+    def draws(keys):
+        step_keys = prng.fold_in(keys[:, None], at.to(keys.device))
+        return prng.uniform(prng.split(step_keys)[..., 0, :], (8,)).cpu()
+
+    if not (torch.equal(state.key[:few].cpu(), cstate.key) and
+            torch.equal(draws(state.key[:few]).view(torch.int32),
+                        draws(cstate.key).view(torch.int32))):
+        raise AssertionError("incremental: keys or uniforms differ between the card and the CPU")
+    gap = (state.pose[:few].cpu() - cstate.pose).abs().flatten(1).amax(1)
+    parted = (state.n_accept[:few].cpu() != cstate.n_accept) | (gap > POSE_ATOL)
+    if int(parted.sum()) > MAX_DIVERGENT_CHAINS:
+        raise AssertionError(f"incremental: {int(parted.sum())} of {few} chains part from the CPU")
+
+    # ms per step: the slope over step counts, beside the torch engine's eager step
+    counts = (50, 250)
+
+    def inc(k):
+        return I.run_chains_incremental(key, pose0, scene, dataclasses.replace(cfg, iterations=k),
+                                        n_groups=groups)
+
+    def eager(k):
+        return M.run_chains(key, pose0, scene, dataclasses.replace(cfg, iterations=k))
+
+    it = [events_ms(lambda k=k: inc(k), 2) for k in counts]
+    et = [events_ms(lambda k=k: eager(k), 2) for k in counts]
+    def ten_steps():
+        s = state
+        for _ in range(10):
+            s = I.inc_step(s, scene, cfg, groups)
+
+    I.inc_step(state, scene, cfg, groups)  # warm-up
+    prof = profile_run(ten_steps, 10)
+    inc_ms, torch_ms = slope(counts, it), slope(counts, et)
+    say("incremental", card=smi, objs=n, chains=chains, n_groups=groups, steps=steps,
+        state_equals_fresh_bitwise=True, mean_accept=acc, chains_accepting=accepting,
+        total_vs_cost_terms_max_abs=(state.total - ref).abs().max().item(),
+        cpu_chains=few, cpu_keys_and_uniforms_bitwise=True, cpu_chains_parted=int(parted.sum()),
+        cpu_max_pose_gap=gap.max().item(), ms_per_step=inc_ms,
+        proposals_per_s=chains / (inc_ms * 1e-3), torch_eager_ms_per_step=torch_ms,
+        ratio_to_torch_eager=inc_ms / torch_ms, inc_ms=dict(zip(map(str, counts), it)),
+        torch_ms=dict(zip(map(str, counts), et)), peak_memory_bytes=peak,
+        state_bytes=sum(t.numel() * t.element_size() for t in (state.a_mat, state.gmax)),
+        kernels_per_step=prof["kernels_per_step"], device_busy_share=prof["device_busy_share"],
+        profile_wall_ms_per_step=prof["wall_ms"] / 10, top_kernels=prof["top"])
 
 
 def ptxas_registers(log: str, kernel: str):
@@ -1596,8 +1728,7 @@ def main(argv=None) -> int:
         for case, mode, w_off, kw in (("parity", CostMode.PARITY, 0.0, {}),
                                       ("fixed", CostMode.FIXED, 0.0, {}),
                                       ("fixed_weighted", CostMode.FIXED, -1.5, {}),
-                                      ("block_4x4", CostMode.PARITY, 0.0,
-                                       dict(n_moves_per_step=4, accept_draws=4))):
+                                      ("block_4x4", CostMode.PARITY, 0.0, BLOCK_4X4)):
             ecfg = SamplerConfig(iterations=50, n_chains=64, mode=mode, **kw)
             runs = {}
             for d in (dev, cpu):
@@ -1605,6 +1736,23 @@ def main(argv=None) -> int:
                 runs[d.type], _ = M.run_chains(prng.key(5, d), spec32.initial_pose(device=d), sc, ecfg)
             say("torch_engine_vs_cpu", case=case, objs=32, steps=50,
                 **states_agree(case, runs["cuda"], runs["cpu"]))
+        # a start pose holding -0.0: every zero keeps the CPU's sign bit
+        from mh_tpu_torch.sampler.incremental import run_chains_incremental
+        ecfg = SamplerConfig(iterations=50, n_chains=64)
+        for case, run, kw in (
+                ("neg_zero", M.run_chains, {}),
+                ("neg_zero_block_4x4", M.run_chains, {}),
+                ("neg_zero_incremental", run_chains_incremental, dict(n_groups=8))):
+            rcfg = dataclasses.replace(ecfg, **BLOCK_4X4) if "block" in case else ecfg
+            runs = {}
+            for d in (dev, cpu):
+                start = spec32.initial_pose(device=d).clone()
+                start[:, [0, 4]] = -0.0
+                runs[d.type], _ = run(prng.key(5, d), start, spec32.build(device=d), rcfg, **kw)
+            costs = (lambda s: s.total[:, None]) if "incremental" in case else \
+                (lambda s: s.costs.as_vector())
+            say("torch_engine_vs_cpu", case=case, objs=32, steps=50,
+                **states_agree(case, runs["cuda"], runs["cpu"], costs, zero_signs=True))
 
     if "main_path_torch" in phases:
         # 10. the torch engine's main path at full width, and auto on CUDA
@@ -1663,6 +1811,10 @@ def main(argv=None) -> int:
             auto_mean_accept=float(auto_res.accept_rate.mean()),
             auto_engine_121_draws=wide_chosen, auto_121_draws_equals_torch_bitwise=True,
             auto_121_draws_mean_accept=float(wide_res.accept_rate.mean()))
+
+    if "incremental" in phases:
+        # 21. the incremental-symmetry chains at 100 x 1024
+        incremental_phase(smi)
 
     if "tempering_smc" in phases:
         # 11. tempering and SMC (BASELINE config 5, bench.py:330-378) on CUDA vs the CPU

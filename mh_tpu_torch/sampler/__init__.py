@@ -11,6 +11,8 @@
 - :mod:`mh_tpu_torch.sampler.vi` — mean-field Gaussian VI
 - :mod:`mh_tpu_torch.sampler.generic` — RW-MH over batched log-densities, the
   layout objective as one
+- :mod:`mh_tpu_torch.sampler.incremental` — exact delta-cost variant (see its
+  docstring)
 """
 
 from mh_tpu_torch.sampler.mh import (

@@ -7,10 +7,11 @@ pick of ``mh_tpu``: ``target = min(floor(u * n_unfrozen), n_unfrozen - 1)
 + 1``, the 1-based rank among the movable objects. ``mh_tpu`` applies the
 move as one-hot arithmetic over all N objects; here the picked object is
 found with ``searchsorted`` on the cumulative rank and its row is loaded
-and stored by index, which is exact, touches two rows instead of N, and
-needs no matrix product (a float32 product may run in TF32 on the card).
-The touched rows are computed with ``mh_tpu``'s own expressions
-(``x + (clip(x + dx) - x)``, ``v1 + (v2 - v1)``, ...), so they round alike.
+and stored by index, which is exact and needs no matrix product (a
+float32 product may run in TF32 on the card). The touched rows are
+computed with ``mh_tpu``'s own expressions (``x + (clip(x + dx) - x)``,
+``v1 + (v2 - v1)``, ...), so they round alike; every other row gets the
+signed zero those expressions add to it, so zero signs match too.
 
 Every function of the chain engine is batched over the leading dims of the
 pose and reads nothing back to the host. The single-move wrappers at the
@@ -64,6 +65,7 @@ class MoveTables:
     sigmas: tuple[Tensor, Tensor]  # translation std (x, y)
     sigma_t: float  # rotation std, rounded to float32
     pi: float  # the mode's PI
+    neg_zero_row: Tensor  # f32[1, 1, 6] of -0.0: any row a move does not pick
 
     @classmethod
     def build(cls, scene: Scene, cfg: SamplerConfig) -> "MoveTables":
@@ -79,6 +81,7 @@ class MoveTables:
             sigmas=translation_sigmas(scene, cfg),
             sigma_t=prng.f32(cfg.sigma_t),
             pi=cfg.mode.pi,
+            neg_zero_row=torch.full((1, 1, 6), -0.0, device=scene.device),
         )
 
 
@@ -108,46 +111,67 @@ def decode_moves(u: Tensor, tables: MoveTables, scale) -> tuple[Tensor, ...]:
     return move, dx, dy, drot, pick(u[..., 6]), pick(u[..., 7])
 
 
-def apply_move(pose: Tensor, tables: MoveTables, move, dx, dy, drot, i1, i2) -> Tensor:
-    """One decoded move on ``pose`` f32[B, N, 6]; the move fields are ``[B]``.
+def move_weights(move: Tensor, i1: Tensor, i2: Tensor, tables: MoveTables) -> Tensor:
+    """``mh_tpu``'s one-hot weights of the moves ``move``/``i1``/``i2`` [...]:
+    f32[..., 3, 3], the translate, rotate and swap weight (``is_t * sel1``,
+    ``is_r * sel1``, ``can_swap * (sel1 - sel2)``) of row ``i1``, row ``i2``
+    and any other row. Every weight is +-0 or +-1, as ``mh_tpu``'s are."""
+    same = (i1 == i2).to(torch.float32)
+    one, zero = torch.ones_like(same), torch.zeros_like(same)
+    sel1 = torch.stack([one, same, zero], -1)
+    sel2 = torch.stack([same, one, zero], -1)
+    is_t = (move == 0).to(torch.float32)[..., None]
+    is_r = (move == 1).to(torch.float32)[..., None]
+    can_swap = ((move == 2) & tables.can_swap).to(torch.float32)[..., None]
+    return torch.stack([is_t * sel1, is_r * sel1, can_swap * (sel1 - sel2)], -2)
+
+
+def apply_move(pose: Tensor, tables: MoveTables, dx, dy, drot, i1, i2, weights) -> Tensor:
+    """One decoded move on ``pose`` f32[B, N, 6]; the move fields are ``[B]``,
+    ``weights`` f32[B, 3, 3] from :func:`move_weights`.
 
     Row ``i1`` gets the translate or rotate; a swap exchanges the full
     rows ``i1`` and ``i2`` (a no-op when they coincide or the scene has
     fewer than 2 objects). Without a movable object nothing changes.
+
+    ``mh_tpu`` writes every row through its plane expressions (``x + w *
+    (clip(x + dx) - x)``, ``rot + w * (wrap - rot)``, ``pose + can_swap *
+    (sel1 - sel2) * (row2 - row1)``), which add a signed zero to each row
+    the move does not touch: a -0.0 there turns +0.0 unless every added
+    zero is -0.0. Those expressions are evaluated here on the two picked
+    rows and on one row of -0.0; the latter's result (+-0) is then added to
+    the whole pose, which changes nothing but those zero signs.
     """
     mnx, mny, mxx, mxy = tables.bounds
-    idx1 = i1[:, None, None].expand(-1, 1, 6)
-    idx2 = i2[:, None, None].expand(-1, 1, 6)
-    p1 = torch.gather(pose, 1, idx1)[:, 0]  # [B, 6]
-    p2 = torch.gather(pose, 1, idx2)[:, 0]
-    is_t = (move == 0).to(torch.float32)
-    is_r = (move == 1).to(torch.float32)
-    is_s = (move == 2) & tables.can_swap
+    b = pose.shape[0]
+    idx = torch.stack([i1, i2], 1)[:, :, None].expand(-1, 2, 6)
+    rows = torch.cat([torch.gather(pose, 1, idx), tables.neg_zero_row.expand(b, 1, 6)], 1)
+    w_t, w_r, w_s = weights.unbind(-2)  # [B, 3] each: row i1, row i2, another row
 
-    x, y, rot = p1[:, 0], p1[:, 1], p1[:, 4]
-    new_x = x + is_t * (torch.clamp(x + dx, mnx, mxx) - x)
-    new_y = y + is_t * (torch.clamp(y + dy, mny, mxy) - y)
-    new_rot = rot + is_r * (wrap_angle_once(rot + drot, tables.pi) - rot)
-    moved = torch.stack([new_x, new_y, p1[:, 2], p1[:, 3], new_rot, p1[:, 5]], 1)
+    x, y, rot = rows[..., 0], rows[..., 1], rows[..., 4]
+    new_x = x + w_t * (torch.clamp(x + dx[:, None], mnx, mxx) - x)
+    new_y = y + w_t * (torch.clamp(y + dy[:, None], mny, mxy) - y)
+    new_rot = rot + w_r * (wrap_angle_once(rot + drot[:, None], tables.pi) - rot)
+    star = torch.stack([new_x, new_y, rows[..., 2], rows[..., 3], new_rot, rows[..., 5]], -1)
 
-    diff = p2 - p1
-    keep = ~is_s[:, None]
-    row1 = torch.where(keep, moved, p1 + diff)
-    row2 = torch.where(keep, p2, p2 - diff)
-    row1 = torch.where(tables.has_unf, row1, p1)  # nothing movable: i1 == i2 == 0
-    out = pose.scatter(1, idx2, row2[:, None])
-    return out.scatter(1, idx1, row1[:, None])  # i1 == i2 keeps row 1
+    # mh_tpu gathers the rows as a one-hot product, whose sum starts at +0.0
+    picked = star[:, :2] + 0.0
+    out = star + w_s[..., None] * (picked[:, 1] - picked[:, 0])[:, None]
+    out = torch.where(tables.has_unf, out, rows)  # nothing movable: i1 == i2 == 0
+    new = pose + out[:, 2:]
+    return new.scatter_(1, idx, out[:, :2])  # i1 == i2: both rows are the same values
 
 
 def block_apply(u: Tensor, pose: Tensor, tables: MoveTables, scale) -> Tensor:
     """M sequential moves from ``u`` f32[..., M, 8] on ``pose`` f32[..., N, 6]."""
     lead = pose.shape[:-2]
-    decoded = decode_moves(u, tables, scale)
     b = math.prod(lead)
     flat = pose.reshape(b, *pose.shape[-2:])
-    fields = [t.expand(*lead, u.shape[-2]).reshape(b, -1) for t in decoded]
+    move, *fields = (t.expand(*lead, u.shape[-2]).reshape(b, -1)
+                     for t in decode_moves(u, tables, scale))
+    weights = move_weights(move, fields[3], fields[4], tables)
     for m in range(u.shape[-2]):
-        flat = apply_move(flat, tables, *(t[:, m] for t in fields))
+        flat = apply_move(flat, tables, *(t[:, m] for t in fields), weights[:, m])
     return flat.reshape(pose.shape)
 
 
@@ -203,8 +227,9 @@ def _single_move(pose: Tensor, scene: Scene, cfg: SamplerConfig, scale, move: in
     sx, sy = tables.sigmas
     dx, dy, drot = nrm[0] * sx * scale, nrm[1] * sy * scale, nrm[2] * tables.sigma_t * scale
     one = torch.full((1,), move, dtype=torch.int32, device=pose.device)
-    fields = [t.reshape(1) for t in (dx, dy, drot, torch.as_tensor(i1), torch.as_tensor(i2))]
-    return apply_move(pose[None], tables, one, *fields)[0]
+    i1, i2 = (torch.as_tensor(i, device=pose.device).reshape(1) for i in (i1, i2))
+    return apply_move(pose[None], tables, dx.reshape(1), dy.reshape(1), drot.reshape(1), i1, i2,
+                      move_weights(one, i1, i2, tables))[0]
 
 
 def translate_move(key: Tensor, pose: Tensor, scene: Scene, cfg: SamplerConfig,

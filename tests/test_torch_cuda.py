@@ -470,3 +470,56 @@ def test_example_runs_on_the_card(cuda, name, args, line):
                          env={**os.environ, "PYTHONPATH": str(repo)})
     assert run.returncode == 0, run.stderr[-2000:]
     assert line in run.stdout
+
+
+@pytest.mark.parametrize("path", ["run_chains", "block_4x4", "incremental"])
+def test_zero_signs_on_card_equal_cpu(cuda, path):
+    """A start pose whose x and rotation columns are -0.0, on the card and
+    on the CPU: the chains agree (at most 2 of 16 may part where an ulp of
+    a transcendental flips an accept), and in those that do every zero
+    coordinate carries the same sign bit."""
+    from mh_tpu_torch.sampler import incremental as TI
+    from mh_tpu_torch.sampler import mh as TM
+    from mh_tpu_torch.sampler import prng
+
+    spec = mh_tpu_torch.demo_scene(32)
+    kw = dict(n_moves_per_step=4, accept_draws=4) if path == "block_4x4" else {}
+    cfg = mh_tpu_torch.SamplerConfig(iterations=30, n_chains=16, **kw)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        pose0 = spec.initial_pose(device=dev).clone()
+        pose0[:, [0, 4]] = -0.0
+        if path == "incremental":
+            runs[dev.type], _ = TI.run_chains_incremental(prng.key(5, dev), pose0,
+                                                          spec.build(device=dev), cfg, n_groups=8)
+        else:
+            runs[dev.type], _ = TM.run_chains(prng.key(5, dev), pose0, spec.build(device=dev), cfg)
+    g, w = runs["cuda"].pose.cpu(), runs["cpu"].pose
+    same = (runs["cuda"].n_accept.cpu() == runs["cpu"].n_accept) & (
+        (g - w).abs().flatten(1).amax(1) <= 1e-4)
+    assert int((~same).sum()) <= 2
+    g, w = g[same], w[same]
+    zero = (g == 0) | (w == 0)
+    assert bool(zero.any()) and bool((g[zero] == 0).all()) and bool((w[zero] == 0).all())
+    assert torch.equal(torch.signbit(g[zero]), torch.signbit(w[zero]))
+
+
+def test_incremental_state_on_card_equals_fresh_bitwise(cuda):
+    """100 objects x 1024 chains, 10 column groups, 40 steps on the card:
+    the carried matrix, group maxima and total equal a fresh evaluation of
+    the final poses bit for bit."""
+    from mh_tpu_torch.sampler import incremental as TI
+    from mh_tpu_torch.sampler import prng
+
+    spec = mh_tpu_torch.demo_scene(100)
+    scene = spec.build(device=cuda)
+    cfg = mh_tpu_torch.SamplerConfig(iterations=40, n_chains=1024)
+    state, _ = TI.run_chains_incremental(prng.key(0, cuda), spec.initial_pose(device=cuda),
+                                         scene, cfg, n_groups=10)
+    assert state.a_mat.device.type == "cuda" and int((state.n_accept > 0).sum()) > 512
+    fresh = TI.full_val_matrix(state.pose, scene, mh_tpu_torch.CostMode.PARITY.pi)
+    gmax = TI._group_max(fresh, 10)
+    total = TI._cheap_total(state.pose, scene, mh_tpu_torch.CostMode.PARITY,
+                            TI._sym_from_gmax(gmax, scene))
+    for carried, want in ((state.a_mat, fresh), (state.gmax, gmax), (state.total, total)):
+        assert torch.equal(carried.view(torch.int32), want.view(torch.int32))

@@ -325,3 +325,24 @@ def test_offlimits_gate_decided_once_per_scene():
         state = TM.mh_step(state, scene, cfg)  # evaluates the zero-weight term
     assert torch.equal(state.pose, states.pose)
     assert torch.equal(state.costs.total, states.costs.total)
+
+
+@pytest.mark.parametrize("case", ["parity", "block_4x4_adapt", "compiled"])
+def test_zero_signs_match_mh_tpu(case):
+    """A start pose with its x and rotation columns at -0.0: the chains
+    that agree end with mh_tpu's sign bits on every zero (mh_tpu's moves
+    write every row, which turns an untouched -0.0 into +0.0 unless every
+    zero they add is -0.0)."""
+    js, ts, pose0 = scenes()
+    pose0[:, [0, 4]] = np.float32(-0.0)
+    jc, tc = configs(iterations=20, **CASES.get(case, {}))
+    want, _ = JM.run_chains(jax.random.key(6), jnp.asarray(pose0), js, jc)
+    if case == "compiled":
+        got, _ = TM.compile_chains(ts, tc)(prng.key(6), torch.as_tensor(pose0))
+    else:
+        got, _ = TM.run_chains(prng.key(6), torch.as_tensor(pose0), ts, tc)
+    same = assert_chains_agree(got.to_numpy(), jax_state_numpy(want))
+    assert same.sum() >= 6
+    gp, wp = got.pose.numpy()[same], np.asarray(want.pose)[same]
+    np.testing.assert_array_equal(np.signbit(gp), np.signbit(wp))
+    assert np.array_equal(gp == 0, wp == 0) and (wp == 0).any()

@@ -249,3 +249,60 @@ def test_single_move_wrappers_match_mh_tpu(move, mode):
         np.testing.assert_allclose(got, want, **TOL)
         changed += int(np.any(got != pose))
     assert changed >= N_KEYS // 2
+
+
+# --- zero signs: mh_tpu writes every row, so a -0.0 it does not move can turn +0.0
+
+def _with_zeros(pose: np.ndarray, rng) -> np.ndarray:
+    """``pose`` with about half its coordinates set to -0.0 and a tenth to
+    +0.0, in every column."""
+    pose = np.where(rng.random(pose.shape) < 0.5, np.float32(-0.0), pose)
+    return np.where(rng.random(pose.shape) < 0.1, np.float32(0.0), pose).astype(np.float32)
+
+
+def assert_same_bits_of_zeros(got: np.ndarray, want: np.ndarray):
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_array_equal(np.signbit(got), np.signbit(want))
+    assert np.array_equal(got == 0, want == 0)
+
+
+@pytest.mark.parametrize("mode", ["PARITY", "FIXED"])
+@pytest.mark.parametrize("seed,n_frozen,moves", [(20, 0, 1), (21, 3, 1), (22, 2, 6),
+                                                 (23, 12, 3), (24, 11, 2)])
+def test_zero_signs_match_mh_tpu(seed, n_frozen, moves, mode):
+    """Single moves and the block layout from a pose holding -0.0 and +0.0
+    give mh_tpu's values and sign bits: translate, rotate and swap, the
+    same object picked twice, frozen objects, none or one movable."""
+    js, ts, pose, rng = scene_pair(seed, n_frozen)
+    pose = _with_zeros(pose, rng)
+    jc, tc = configs(mode)
+    for i in range(16):
+        u = rng.uniform(0.0, 1.0, (moves, 8)).astype(np.float32)
+        u[:, 0] = (i % 3 + 0.5) / 3.0 if i < 12 else u[:, 0]
+        if i % 4 == 3:
+            u[:, 7] = u[:, 6]
+        want = np.asarray(_jax_block(jnp.asarray(u), jnp.asarray(pose), js, jc, jnp.float32(1.0)))
+        got = TP.block_propose_from_uniforms(torch.as_tensor(u), torch.as_tensor(pose), ts, tc,
+                                             1.0).numpy()
+        assert_same_bits_of_zeros(got, want)
+
+
+@pytest.mark.parametrize("move", ["translate", "rotate", "swap"])
+def test_single_move_wrappers_keep_mh_tpu_zero_signs(move):
+    from mh_tpu_torch.sampler import prng
+
+    js, ts, pose, rng = scene_pair(12, 2)
+    pose = _with_zeros(pose, rng)
+    pose[:, [0, 4]] = np.float32(-0.0)
+    jc, tc = configs("PARITY")
+    if move == "swap":
+        jfn = jax.jit(JP.swap_move)
+        run_j = lambda k: jfn(k, jnp.asarray(pose), js)  # noqa: E731
+        run_t = lambda k: TP.swap_move(k, torch.as_tensor(pose), ts)  # noqa: E731
+    else:
+        jfn = jax.jit(getattr(JP, f"{move}_move"), static_argnames=("cfg",))
+        tfn = getattr(TP, f"{move}_move")
+        run_j = lambda k: jfn(k, jnp.asarray(pose), js, jc, jnp.float32(1.5))  # noqa: E731
+        run_t = lambda k: tfn(k, torch.as_tensor(pose), ts, tc, 1.5)  # noqa: E731
+    for k in range(N_KEYS // 2):
+        assert_same_bits_of_zeros(run_t(prng.key(k)).numpy(), np.asarray(run_j(jax.random.key(k))))
