@@ -1,0 +1,19 @@
+"""kernel.fused_roofline: the MH kernel's least time over its measured
+time, in %. The least time of a launch is the larger of its operations
+over the float32 peak and its bytes over the memory bandwidth, as
+``counts/fused_single.py`` counts them from the launch's own draws.
+Reads traces with one single-move launch per call. Moves
+``proposals_per_s``."""
+
+KERNEL = "fused_mh_kernel("
+
+
+def read(ctx):
+    times = ctx.trace.kernels(KERNEL)
+    if not times or len(times) != len(ctx.keys):
+        return None
+    count = ctx.count("fused_single")
+    bounds = [count.launch(ctx.config, ctx.traffic, key) for key in ctx.keys]
+    if any(b is None for b in bounds):
+        return None
+    return 100.0 * sum(b["bound_s"] for b in bounds) / (sum(times) * 1e-6)
