@@ -24,6 +24,7 @@ from mh_tpu_torch.sampler import prng
 from mh_tpu_torch.sampler.mh import (
     ChainStep, chain_starts, compile_chains, run_chains, step_advance,
 )
+from mh_tpu_torch.utils.profiling import span
 from mh_tpu_torch.utils.runlog import RunLogger, as_logger
 
 ENGINES = ("auto", "torch", "torch_graph", "fused")
@@ -126,23 +127,24 @@ def suggest_layouts(
     (``chain_obj_mesh``). It takes the ``torch`` engine and one shared
     ``pose0``.
     """
-    if not isinstance(key, int) or isinstance(key, bool):
-        raise TypeError(f"key must be an int seed, got {type(key).__name__}")
-    engine = ENGINE_ALIASES.get(engine, engine)
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r} (use one of {ENGINES} or "
-                         f"{tuple(ENGINE_ALIASES)})")
+    with span("mh.suggest_layouts"):
+        if not isinstance(key, int) or isinstance(key, bool):
+            raise TypeError(f"key must be an int seed, got {type(key).__name__}")
+        engine = ENGINE_ALIASES.get(engine, engine)
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r} (use one of {ENGINES} or "
+                             f"{tuple(ENGINE_ALIASES)})")
 
-    logger = as_logger(log)
-    try:
-        res, engine_used = _dispatch_layouts(scene, cfg, key, pose0, engine, mesh, objs_devices,
-                                             logger, log_every, device)
-        if logger is not None:
-            logger.log_result(res, engine=engine_used)
-        return res
-    finally:
-        if logger is not None and not isinstance(log, RunLogger):
-            logger.close()
+        logger = as_logger(log)
+        try:
+            res, engine_used = _dispatch_layouts(scene, cfg, key, pose0, engine, mesh,
+                                                 objs_devices, logger, log_every, device)
+            if logger is not None:
+                logger.log_result(res, engine=engine_used)
+            return res
+        finally:
+            if logger is not None and not isinstance(log, RunLogger):
+                logger.close()
 
 
 def _dispatch_layouts(scene, cfg, key, pose0, engine, mesh, objs_devices, logger, log_every,
@@ -160,9 +162,10 @@ def _dispatch_layouts(scene, cfg, key, pose0, engine, mesh, objs_devices, logger
                 "or the fused kernel's plain PyTorch version)"
             )
         spec = scene
-        scene = spec.build(device=device)
-        if pose0 is None:
-            pose0 = spec.initial_pose(device=device)
+        with span("mh.scene_build"):
+            scene = spec.build(device=device)
+            if pose0 is None:
+                pose0 = spec.initial_pose(device=device)
     if pose0 is None:
         raise ValueError("pose0 is required when passing a built Scene")
     device = scene.device if device is None else torch.device(device)
@@ -208,12 +211,13 @@ def _dispatch_layouts(scene, cfg, key, pose0, engine, mesh, objs_devices, logger
             out = run_chains_fused_sharded(key, pose0, scene, cfg, cfg.n_chains,
                                            cfg.iterations, mesh)
         pose, breakdown, n_acc, scale = out
-        return LayoutResult(
-            points=pose[:, :n_real, :].cpu().numpy(),
-            costs=breakdown.cpu().numpy(),
-            accept_rate=n_acc.cpu().numpy().astype(np.float64) / max(cfg.iterations, 1),
-            step_scale=scale.cpu().numpy(),
-        ), engine
+        with span("mh.readback"):
+            return LayoutResult(
+                points=pose[:, :n_real, :].cpu().numpy(),
+                costs=breakdown.cpu().numpy(),
+                accept_rate=n_acc.cpu().numpy().astype(np.float64) / max(cfg.iterations, 1),
+                step_scale=scale.cpu().numpy(),
+            ), engine
 
     if mesh is not None and engine == "torch_graph":
         raise ValueError("mesh sharding applies to engine='torch' (xla) only")

@@ -61,6 +61,7 @@ from mh_tpu_torch.models.scene import Scene
 from mh_tpu_torch.ops import geometry as geo
 from mh_tpu_torch.ops.costs import floor_mod
 from mh_tpu_torch.parallel.mesh import chain_shards, concat, local_count
+from mh_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -160,104 +161,105 @@ def pack_scene(scene: Scene, cfg: SamplerConfig) -> PackedScene:
     arrays. Raises for ``accept_draws`` outside ``[1, 120]`` (``:2356``):
     one draw counter holds 8 proposal lanes and at most 120 accept lanes.
     """
-    if not 1 <= cfg.accept_draws <= MAX_ACCEPT_DRAWS:
-        raise ValueError(f"fused kernel supports accept_draws in [1, {MAX_ACCEPT_DRAWS}], "
-                         f"got {cfg.accept_draws}")
-    dev = scene.device
-    n0 = scene.n_pad_objs
+    with span("mh.pack_scene"):
+        if not 1 <= cfg.accept_draws <= MAX_ACCEPT_DRAWS:
+            raise ValueError(f"fused kernel supports accept_draws in [1, {MAX_ACCEPT_DRAWS}], "
+                             f"got {cfg.accept_draws}")
+        dev = scene.device
+        n0 = scene.n_pad_objs
 
-    def npf(t):
-        return t.detach().cpu().numpy().astype(np.float32)
+        def npf(t):
+            return t.detach().cpu().numpy().astype(np.float32)
 
-    def npi(t):
-        return t.detach().cpu().numpy().astype(np.int32)
+        def npi(t):
+            return t.detach().cpu().numpy().astype(np.int32)
 
-    mask = npf(scene.obj_mask)
-    ok = mask * (np.float32(1.0) - npf(scene.frozen))
-    sizes = npf(scene.sizes)
-    planes = np.zeros((N_PLANES, n0), np.float32)
-    planes[P_MASK] = mask
-    planes[P_OK] = ok
-    planes[P_RANK] = np.cumsum(ok, dtype=np.float32)
-    planes[P_AREA] = sizes[:, 0] * sizes[:, 1]
-    for p, name in ((P_OV0X, "v0x"), (P_OTAILX, "tail_min_x"), (P_OMINX, "min_x"),
-                    (P_OMINY, "min_y"), (P_OMAXX, "max_x"), (P_OMAXY, "max_y")):
-        planes[p] = npf(getattr(scene.off_rects, name))
-    unf = np.flatnonzero(ok > 0).astype(np.int32)
+        mask = npf(scene.obj_mask)
+        ok = mask * (np.float32(1.0) - npf(scene.frozen))
+        sizes = npf(scene.sizes)
+        planes = np.zeros((N_PLANES, n0), np.float32)
+        planes[P_MASK] = mask
+        planes[P_OK] = ok
+        planes[P_RANK] = np.cumsum(ok, dtype=np.float32)
+        planes[P_AREA] = sizes[:, 0] * sizes[:, 1]
+        for p, name in ((P_OV0X, "v0x"), (P_OTAILX, "tail_min_x"), (P_OMINX, "min_x"),
+                        (P_OMINY, "min_y"), (P_OMAXX, "max_x"), (P_OMAXY, "max_y")):
+            planes[p] = npf(getattr(scene.off_rects, name))
+        unf = np.flatnonzero(ok > 0).astype(np.int32)
 
-    mnx, mny, mxx, mxy = (float(v) for v in scene.surface_bounds())
-    sigx = (mxx - mnx) / 16.0
-    sigy = (mxy - mny) / 16.0
-    if cfg.sigma_xy_override > 0:
-        sigx = sigy = cfg.sigma_xy_override
-    frot = np.float32(float(scene.focal_rot))
-    denom = _block_sum(torch.as_tensor(planes[P_AREA] * mask)[None])[0].item()
-    s = np.zeros(N_SCALARS, np.float32)
-    s[S_WPW] = float(scene.w_pairwise)
-    s[S_WVB] = float(scene.w_visual_balance)
-    s[S_WFP] = float(scene.w_focal)
-    s[S_WSY] = float(scene.w_symmetry)
-    s[S_WCL] = float(scene.w_clearance)
-    s[S_WOL] = float(scene.w_offlimits)
-    s[S_WSA] = float(scene.w_surface_area)
-    s[S_CX2] = float(scene.centroid[0]) / 2.0
-    s[S_CY2] = float(scene.centroid[1]) / 2.0
-    s[S_FX] = float(scene.focal[0])
-    s[S_FY] = float(scene.focal[1])
-    s[S_FROT] = frot
-    s[S_UX] = np.cos(frot)
-    s[S_UY] = np.sin(frot)
-    s[S_MNX], s[S_MNY], s[S_MXX], s[S_MXY] = mnx, mny, mxx, mxy
-    s[S_SIGX], s[S_SIGY], s[S_SIGT] = sigx, sigy, cfg.sigma_t
-    s[S_BETA] = cfg.beta
-    s[S_NOBJ] = float(np.sum(mask > 0))
-    s[S_NUNF] = float(np.sum(ok))
-    s[S_ADAPTR] = cfg.adapt_rate
-    s[S_TARGET] = cfg.target_accept
-    s[S_PI] = cfg.mode.pi
-    s[S_DENOM] = denom if denom > 0 else 1.0
+        mnx, mny, mxx, mxy = (float(v) for v in scene.surface_bounds())
+        sigx = (mxx - mnx) / 16.0
+        sigy = (mxy - mny) / 16.0
+        if cfg.sigma_xy_override > 0:
+            sigx = sigy = cfg.sigma_xy_override
+        frot = np.float32(float(scene.focal_rot))
+        denom = _block_sum(torch.as_tensor(planes[P_AREA] * mask)[None])[0].item()
+        s = np.zeros(N_SCALARS, np.float32)
+        s[S_WPW] = float(scene.w_pairwise)
+        s[S_WVB] = float(scene.w_visual_balance)
+        s[S_WFP] = float(scene.w_focal)
+        s[S_WSY] = float(scene.w_symmetry)
+        s[S_WCL] = float(scene.w_clearance)
+        s[S_WOL] = float(scene.w_offlimits)
+        s[S_WSA] = float(scene.w_surface_area)
+        s[S_CX2] = float(scene.centroid[0]) / 2.0
+        s[S_CY2] = float(scene.centroid[1]) / 2.0
+        s[S_FX] = float(scene.focal[0])
+        s[S_FY] = float(scene.focal[1])
+        s[S_FROT] = frot
+        s[S_UX] = np.cos(frot)
+        s[S_UY] = np.sin(frot)
+        s[S_MNX], s[S_MNY], s[S_MXX], s[S_MXY] = mnx, mny, mxx, mxy
+        s[S_SIGX], s[S_SIGY], s[S_SIGT] = sigx, sigy, cfg.sigma_t
+        s[S_BETA] = cfg.beta
+        s[S_NOBJ] = float(np.sum(mask > 0))
+        s[S_NUNF] = float(np.sum(ok))
+        s[S_ADAPTR] = cfg.adapt_rate
+        s[S_TARGET] = cfg.target_accept
+        s[S_PI] = cfg.mode.pi
+        s[S_DENOM] = denom if denom > 0 else 1.0
 
-    parity = cfg.mode is CostMode.PARITY
-    clr_real = np.flatnonzero(npf(scene.clr_mask) > 0)
-    clr_src = npi(scene.clr_src)[clr_real]
-    # Kernel.cu:456 quirk: PARITY surface area anchors clearance i to object i
-    anchor = np.minimum(clr_real, n0 - 1).astype(np.int32) if parity else clr_src
-    clr_p = np.stack(
-        [npf(getattr(scene.clr_rects, f))[clr_real]
-         for f in ("v0x", "tail_min_x", "min_x", "min_y", "max_x", "max_y")],
-        axis=1,
-    ).reshape(-1, 6)
+        parity = cfg.mode is CostMode.PARITY
+        clr_real = np.flatnonzero(npf(scene.clr_mask) > 0)
+        clr_src = npi(scene.clr_src)[clr_real]
+        # Kernel.cu:456 quirk: PARITY surface area anchors clearance i to object i
+        anchor = np.minimum(clr_real, n0 - 1).astype(np.int32) if parity else clr_src
+        clr_p = np.stack(
+            [npf(getattr(scene.clr_rects, f))[clr_real]
+             for f in ("v0x", "tail_min_x", "min_x", "min_y", "max_x", "max_y")],
+            axis=1,
+        ).reshape(-1, 6)
 
-    rel_idx = np.stack([npi(scene.rel_src), npi(scene.rel_tgt)], 1)
-    ang_idx = np.stack([npi(scene.ang_src), npi(scene.ang_tgt)], 1)
-    clr_idx = np.stack([clr_src, anchor], 1).reshape(-1, 2)
-    # the kernel loads pose lanes at these indices unchecked
-    for name, idx in (("relationship", rel_idx), ("angle", ang_idx), ("clearance", clr_idx)):
-        if idx.size and (idx.min() < 0 or idx.max() >= n0):
-            raise ValueError(f"{name} object index out of range [0, {n0}): {idx.tolist()}")
+        rel_idx = np.stack([npi(scene.rel_src), npi(scene.rel_tgt)], 1)
+        ang_idx = np.stack([npi(scene.ang_src), npi(scene.ang_tgt)], 1)
+        clr_idx = np.stack([clr_src, anchor], 1).reshape(-1, 2)
+        # the kernel loads pose lanes at these indices unchecked
+        for name, idx in (("relationship", rel_idx), ("angle", ang_idx), ("clearance", clr_idx)):
+            if idx.size and (idx.min() < 0 or idx.max() >= n0):
+                raise ValueError(f"{name} object index out of range [0, {n0}): {idx.tolist()}")
 
-    def ti(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
+        def ti(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
 
-    def tf(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+        def tf(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
 
-    return PackedScene(
-        planes=tf(planes),
-        unf_idx=ti(unf if unf.size else np.zeros(1, np.int32)),
-        scalars=tf(s),
-        rel_idx=ti(rel_idx),
-        rel_p=tf(np.stack([npf(scene.rel_lo), npf(scene.rel_hi), npf(scene.rel_mask)], 1)),
-        ang_idx=ti(ang_idx),
-        ang_p=tf(np.stack([npf(scene.ang_min), npf(scene.ang_max), npf(scene.ang_mask)], 1)),
-        clr_idx=ti(clr_idx),
-        clr_p=tf(clr_p),
-        parity=parity,
-        track_off=tracks_off(scene, cfg),
-        adapt=cfg.adapt,
-        moves=cfg.n_moves_per_step,
-        accept_draws=cfg.accept_draws,
-    )
+        return PackedScene(
+            planes=tf(planes),
+            unf_idx=ti(unf if unf.size else np.zeros(1, np.int32)),
+            scalars=tf(s),
+            rel_idx=ti(rel_idx),
+            rel_p=tf(np.stack([npf(scene.rel_lo), npf(scene.rel_hi), npf(scene.rel_mask)], 1)),
+            ang_idx=ti(ang_idx),
+            ang_p=tf(np.stack([npf(scene.ang_min), npf(scene.ang_max), npf(scene.ang_mask)], 1)),
+            clr_idx=ti(clr_idx),
+            clr_p=tf(clr_p),
+            parity=parity,
+            track_off=tracks_off(scene, cfg),
+            adapt=cfg.adapt,
+            moves=cfg.n_moves_per_step,
+            accept_draws=cfg.accept_draws,
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -890,11 +892,12 @@ def _run(pk: PackedScene, pose0: Tensor, seed: int, iterations: int, first_chain
     """Chains ``first_chain ..`` of ``pose0`` on the packed scene's device:
     the CUDA kernel there, or on the CPU its plain version."""
     device = pk.planes.device
-    pose0 = pose0.contiguous()
-    if device.type == "cuda":
-        return fused_mh_cuda(pk, pose0, seed, iterations, first_chain)
-    if device.type == "cpu":
-        return fused_chains_reference(pk, pose0, seed, iterations, first_chain)
+    with span("mh.launch"):
+        pose0 = pose0.contiguous()
+        if device.type == "cuda":
+            return fused_mh_cuda(pk, pose0, seed, iterations, first_chain)
+        if device.type == "cpu":
+            return fused_chains_reference(pk, pose0, seed, iterations, first_chain)
     raise ValueError(f"unsupported device {device}")
 
 
@@ -913,7 +916,8 @@ def run_chains_fused_sharded(
     launches its own shards: shard ``d`` runs chains ``d n_local .. (d + 1)
     n_local - 1`` with its first global chain index, which keys the
     kernel's counter-based stream, so the result is bitwise that of one
-    launch on any number of shards and processes. Every shard is launched
+    launch on any number of shards and processes. Every shard's start is
+    moved to its device before any launch, and every shard is launched
     before any result is read; this process's outputs are joined, chains in
     shard order, on its first shard's device (every chain on a mesh within
     one process). Same returns as :func:`run_chains_fused`.
@@ -924,8 +928,13 @@ def run_chains_fused_sharded(
     for d in devices:
         if d not in packs:
             packs[d] = pack_scene(scene.to(d), cfg)
-    poses = _chain_poses(pose0, n_chains, devices[0])
-    outs = [_run(packs[dev], poses[d * n_local:(d + 1) * n_local].to(dev), seed, iterations,
-                 d * n_local)
-            for d, dev in zip(ids, devices)]
-    return tuple(concat(list(parts)) for parts in zip(*outs))
+    # every start moves before any launch: a copy between cards is ordered
+    # after the work queued on both, so a slice moved after the first
+    # shard's launch would hold its own shard's kernel until that one ended
+    with span("mh.split"):
+        poses = _chain_poses(pose0, n_chains, devices[0])
+        starts = [poses[d * n_local:(d + 1) * n_local].to(dev) for d, dev in zip(ids, devices)]
+    outs = [_run(packs[dev], start, seed, iterations, d * n_local)
+            for d, dev, start in zip(ids, devices, starts)]
+    with span("mh.gather"):
+        return tuple(concat(list(parts)) for parts in zip(*outs))

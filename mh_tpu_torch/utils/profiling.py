@@ -2,9 +2,28 @@
 
 A phase timer on the host clock that must see the device finish before it
 reads the clock (CUDA work returns before it is done, so a phase ends with
-:func:`force_completion` of what it made), and a thin wrapper over
-``torch.profiler`` that writes a Chrome trace. Kernel times on the card
+:func:`force_completion` of what it made), a thin wrapper over
+``torch.profiler`` that writes a Chrome trace, and :func:`span`, the named
+ranges the package opens on its own call path. Kernel times on the card
 come from CUDA events (``chip_smoke.py``), not from these.
+
+``suggest_layouts`` opens seven spans on the caller's thread, nested by
+time, which a trace shows on the clock of the card's kernels and copies
+(the Chrome trace :func:`trace` writes, or any ``torch.profiler`` run):
+
+- ``mh.suggest_layouts``: the whole call; its self time is the dispatch
+  (argument checks, ``Scene.to``, the mask counts read back, the engine
+  choice, ``chain_mesh()``, logging);
+- ``mh.scene_build``: ``SceneSpec.build`` and ``initial_pose`` when a
+  ``SceneSpec`` is passed;
+- ``mh.pack_scene``: ``pack_scene``, the scene's host reads, packing and
+  uploads, once per distinct device;
+- ``mh.launch``: the fused kernel's launch wrapper, once per shard (on the
+  CPU, the plain version's run);
+- ``mh.split``: the shared start expanded and each shard's slice moved to
+  its card (a mesh, or every card);
+- ``mh.gather``: the shards' outputs joined on the first shard's card;
+- ``mh.readback``: the fused result copied into the ``LayoutResult``.
 """
 
 from __future__ import annotations
@@ -16,8 +35,12 @@ import time
 from collections import defaultdict
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 
 from mh_tpu_torch.utils.checkpoint import flatten
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def force_completion(tree) -> None:
@@ -25,6 +48,23 @@ def force_completion(tree) -> None:
     state, tuple, dict or tensor) has finished its queued work."""
     for dev in {t.device for t in flatten(tree).values() if t.device.type == "cuda"}:
         torch.cuda.synchronize(dev)
+
+
+def span(name: str):
+    """A context manager that records the block as ``name`` while
+    ``torch.profiler`` runs, and does nothing otherwise (one shared no-op
+    context; a check of the profiler's flag is all it costs).
+
+    The range is function-scoped (``_RecordFunctionFast``), a host op like
+    an aten op. A user-scope ``torch.profiler.record_function`` is not
+    used: the profiler gives each such range a copy on the card's
+    timeline spanning the device work launched inside it, so a trace
+    would count the whole call as card activity. The range belongs to the
+    calling thread.
+    """
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 class PhaseTimer:

@@ -1,0 +1,12 @@
+"""host.pack.ms_per_call: the host path's time in ``kernels/fused_mh.py``
+``pack_scene`` (span ``mh.pack_scene``): the scene's host reads, the packing
+and the uploads, once per card, in ms: the time of each traced call in which
+no card runs a kernel or a copy and this span is the innermost one open,
+averaged over the traced calls (``portbench/spans.py``). Moves
+``proposals_per_s``: one caller waits on each call."""
+
+from portbench.spans import read_span
+
+
+def read(ctx):
+    return read_span(ctx, "mh.pack_scene")

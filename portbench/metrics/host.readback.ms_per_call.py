@@ -1,0 +1,12 @@
+"""host.readback.ms_per_call: the host path's time in the readback (span
+``mh.readback``): the fused result copied into the ``LayoutResult``'s numpy
+arrays, in ms: the time of each traced call in which no card runs a kernel
+or a copy and this span is the innermost one open, averaged over the traced
+calls (``portbench/spans.py``). Moves ``proposals_per_s``: one caller waits
+on each call."""
+
+from portbench.spans import read_span
+
+
+def read(ctx):
+    return read_span(ctx, "mh.readback")

@@ -184,6 +184,31 @@ def test_mesh_arguments_run(kwargs, engine):
             np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
 
 
+@pytest.mark.parametrize("shards", [None, 2])
+def test_fused_call_opens_its_spans(shards):
+    """A traced call on a SceneSpec opens each span of the call path on
+    the caller's thread, inside ``mh.suggest_layouts``: ``mh.launch`` once
+    per shard, ``mh.pack_scene`` once per distinct device (a CPU mesh
+    names one), the split and gather only on a mesh."""
+    mesh = None if shards is None else chain_mesh(devices=["cpu"] * shards)
+    cfg = mh_tpu_torch.SamplerConfig(iterations=4, n_chains=4)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        mh_tpu_torch.suggest_layouts(mh_tpu_torch.demo_scene(6), cfg, key=2, engine="fused",
+                                     mesh=mesh, device="cpu")
+    spans = [e for e in prof.events() if e.name.startswith("mh.")]
+    counts = {n: sum(e.name == n for e in spans) for n in {e.name for e in spans}}
+    want = {"mh.suggest_layouts": 1, "mh.scene_build": 1, "mh.pack_scene": 1,
+            "mh.launch": shards or 1, "mh.readback": 1}
+    if shards:
+        want.update({"mh.split": 1, "mh.gather": 1})
+    assert counts == want
+    top = next(e for e in spans if e.name == "mh.suggest_layouts")
+    for e in spans:
+        assert e.thread == top.thread and not e.is_user_annotation
+        assert top.time_range.start <= e.time_range.start <= e.time_range.end \
+            <= top.time_range.end
+
+
 def test_auto_engine_with_a_mesh():
     """With a mesh, auto takes the fused kernel where it takes the config,
     the shards divide the chains and pose0 is shared, else the sharded

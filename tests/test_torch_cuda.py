@@ -209,6 +209,25 @@ def test_spec_runs_on_cuda_by_default(cuda):
     assert res.costs.shape == (4, 8)
 
 
+def test_traced_call_leaves_no_span_on_the_cards(cuda):
+    """The call path's spans are host ops: a traced batch call (a built
+    scene, the fused kernel) records them on the CPU and puts none of them,
+    nor any copy of them, on a card's timeline beside its kernels."""
+    spec = mh_tpu_torch.demo_scene(32)
+    scene, pose0 = spec.build(device=cuda), spec.initial_pose(device=cuda)
+    cfg = mh_tpu_torch.SamplerConfig(iterations=50, n_chains=64)
+    mh_tpu_torch.suggest_layouts(scene, cfg, 1, pose0)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        mh_tpu_torch.suggest_layouts(scene, cfg, 2, pose0)
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [e for e in prof.events() if e.name.startswith("mh.")]
+    assert any("fused_mh" in e.name for e in on_card)
+    assert {e.name for e in spans} >= {"mh.suggest_layouts", "mh.pack_scene", "mh.launch",
+                                       "mh.readback"}
+    assert not [e.name for e in spans if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def test_run_chains_fused_launches_the_kernel(cuda):
     spec = mh_tpu_torch.demo_scene(12)
     launches, calls = TF.fused_mh_cuda.launches, TF.fused_chains_reference.calls

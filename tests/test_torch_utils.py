@@ -24,7 +24,7 @@ from mh_tpu_torch.sampler import prng
 from mh_tpu_torch.sampler.mh import ChainStep, run_chain, run_chains
 from mh_tpu_torch.utils import checkpoint as CK
 from mh_tpu_torch.utils import metrics as MET
-from mh_tpu_torch.utils.profiling import PhaseTimer, force_completion, trace
+from mh_tpu_torch.utils.profiling import PhaseTimer, force_completion, span, trace
 from mh_tpu_torch.utils.runlog import RunLogger
 
 RTOL = 1e-4
@@ -186,3 +186,27 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
     assert any("mm" in str(e.get("name", "")) for e in events)
+
+
+def test_span_is_a_shared_no_op_with_the_profiler_off():
+    assert span("mh.a") is span("mh.b")
+    with span("mh.a"):
+        x = torch.ones(4) + 1
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        x = x + 1
+    assert not any(e.name == "mh.a" for e in prof.events())
+
+
+def test_span_records_a_host_op_under_the_profiler():
+    """A function-scope range, filed as a CPU op: no user annotation,
+    which the profiler would copy onto a card's timeline."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with span("mh.outer"):
+            with span("mh.inner"):
+                torch.ones(4) + 1
+    events = {e.name: e for e in prof.events() if e.name.startswith("mh.")}
+    assert set(events) == {"mh.outer", "mh.inner"}
+    for e in events.values():
+        assert not e.is_user_annotation and e.device_type == torch.autograd.DeviceType.CPU
+    outer, inner = events["mh.outer"].time_range, events["mh.inner"].time_range
+    assert outer.start <= inner.start and inner.end <= outer.end
