@@ -72,6 +72,9 @@ def suggest_layouts(
 
     Accepts a :class:`SceneSpec` (initial poses taken from the spec) or a
     built :class:`Scene` with ``pose0`` (f32[N, 6] or f32[n_chains, N, 6]).
+    A built scene passed call after call is copied to each card, packed
+    and counted once while its tensors are unchanged (its memo,
+    :meth:`Scene.memo`); a spec is built afresh in every call.
 
     ``key``: the integer seed (the torch engines key ``prng.key(key)`` as
     ``mh_tpu`` keys ``jax.random.key(key)``; the fused kernel seeds its
@@ -170,7 +173,9 @@ def _dispatch_layouts(scene, cfg, key, pose0, engine, mesh, objs_devices, logger
         raise ValueError("pose0 is required when passing a built Scene")
     device = scene.device if device is None else torch.device(device)
     scene = scene.to(device)
-    n_real = int(torch.sum(scene.obj_mask > 0))
+    # read back once per unchanged scene (its memo)
+    n_real, n_clr = scene.memo("mask counts", lambda: (
+        int(torch.sum(scene.obj_mask > 0)), int(torch.sum(scene.clr_mask > 0))))
     shared_pose0 = pose0.ndim == 2
 
     def log_cfg(eng: str) -> None:
@@ -197,7 +202,6 @@ def _dispatch_layouts(scene, cfg, key, pose0, engine, mesh, objs_devices, logger
     if every_card:
         mesh = chain_mesh()
     if engine == "auto":
-        n_clr = int(torch.sum(scene.clr_mask > 0))
         engine = auto_engine(device, cfg, scene.n_pad_objs, n_clr, tracks_off(scene, cfg),
                              None if mesh is None else len(mesh.axis_devices(CHAINS_AXIS)),
                              shared_pose0)

@@ -93,7 +93,8 @@ N_SCALARS = 32
 
 @dataclasses.dataclass(frozen=True)
 class PackedScene:
-    """A Scene packed for the fused kernel (done once per call, on its device)."""
+    """A Scene packed for the fused kernel, on its device (:func:`pack_scene`:
+    once per unchanged scene, device and config)."""
 
     planes: Tensor  # f32[N_PLANES, N]
     unf_idx: Tensor  # i32[max(n_unf, 1)] — lane of the r-th movable object
@@ -133,8 +134,10 @@ def step_layout(accept_draws: int) -> tuple[int, int]:
 
 def tracks_off(scene: Scene, cfg: SamplerConfig) -> bool:
     """Whether the off-limits term enters the loop's totals: FIXED mode with
-    a nonzero weight (PARITY scores it only in the final report)."""
-    return cfg.mode is not CostMode.PARITY and float(scene.w_offlimits) != 0.0
+    a nonzero weight (PARITY scores it only in the final report). The
+    weight is read back once per unchanged scene (its memo)."""
+    return cfg.mode is not CostMode.PARITY and scene.memo(
+        "w_offlimits != 0", lambda: float(scene.w_offlimits) != 0.0)
 
 
 def off_slab_width(n: int) -> int:
@@ -152,6 +155,11 @@ def off_slabs(n: int) -> int:
     return -(-n // off_slab_width(n))
 
 
+# the SamplerConfig fields pack_scene reads
+PACK_FIELDS = ("accept_draws", "sigma_xy_override", "sigma_t", "beta", "adapt_rate",
+               "target_accept", "mode", "adapt", "n_moves_per_step")
+
+
 def pack_scene(scene: Scene, cfg: SamplerConfig) -> PackedScene:
     """Pack a Scene into the kernel's inputs on the scene's device.
 
@@ -160,106 +168,129 @@ def pack_scene(scene: Scene, cfg: SamplerConfig) -> PackedScene:
     clearance anchor ``min(i, N-1)`` (``:275``); entity gathers become index
     arrays. Raises for ``accept_draws`` outside ``[1, 120]`` (``:2356``):
     one draw counter holds 8 proposal lanes and at most 120 accept lanes.
+
+    The packing is kept in the scene's memo (:meth:`Scene.memo`) under
+    the device and the config fields it reads (``PACK_FIELDS``; floats by
+    their bits, so -0.0 and 0.0 differ): a call on the same unchanged
+    scene with equal fields returns the same tensors, opening span
+    ``mh.pack_hit`` inside ``mh.pack_scene``. ``pack_scene.packs`` counts
+    the packings made.
     """
     with span("mh.pack_scene"):
         if not 1 <= cfg.accept_draws <= MAX_ACCEPT_DRAWS:
             raise ValueError(f"fused kernel supports accept_draws in [1, {MAX_ACCEPT_DRAWS}], "
                              f"got {cfg.accept_draws}")
-        dev = scene.device
-        n0 = scene.n_pad_objs
+        key = ("pack", scene.device, tuple(
+            v.hex() if isinstance(v, float) else v for v in (getattr(cfg, f) for f in PACK_FIELDS)))
+        pk = scene.memo_get(key)
+        if pk is not None:
+            with span("mh.pack_hit"):
+                return pk
+        pk = _pack(scene, cfg)
+        pack_scene.packs += 1
+        return scene.memo_put(key, pk)
 
-        def npf(t):
-            return t.detach().cpu().numpy().astype(np.float32)
 
-        def npi(t):
-            return t.detach().cpu().numpy().astype(np.int32)
+pack_scene.packs = 0
 
-        mask = npf(scene.obj_mask)
-        ok = mask * (np.float32(1.0) - npf(scene.frozen))
-        sizes = npf(scene.sizes)
-        planes = np.zeros((N_PLANES, n0), np.float32)
-        planes[P_MASK] = mask
-        planes[P_OK] = ok
-        planes[P_RANK] = np.cumsum(ok, dtype=np.float32)
-        planes[P_AREA] = sizes[:, 0] * sizes[:, 1]
-        for p, name in ((P_OV0X, "v0x"), (P_OTAILX, "tail_min_x"), (P_OMINX, "min_x"),
-                        (P_OMINY, "min_y"), (P_OMAXX, "max_x"), (P_OMAXY, "max_y")):
-            planes[p] = npf(getattr(scene.off_rects, name))
-        unf = np.flatnonzero(ok > 0).astype(np.int32)
 
-        mnx, mny, mxx, mxy = (float(v) for v in scene.surface_bounds())
-        sigx = (mxx - mnx) / 16.0
-        sigy = (mxy - mny) / 16.0
-        if cfg.sigma_xy_override > 0:
-            sigx = sigy = cfg.sigma_xy_override
-        frot = np.float32(float(scene.focal_rot))
-        denom = _block_sum(torch.as_tensor(planes[P_AREA] * mask)[None])[0].item()
-        s = np.zeros(N_SCALARS, np.float32)
-        s[S_WPW] = float(scene.w_pairwise)
-        s[S_WVB] = float(scene.w_visual_balance)
-        s[S_WFP] = float(scene.w_focal)
-        s[S_WSY] = float(scene.w_symmetry)
-        s[S_WCL] = float(scene.w_clearance)
-        s[S_WOL] = float(scene.w_offlimits)
-        s[S_WSA] = float(scene.w_surface_area)
-        s[S_CX2] = float(scene.centroid[0]) / 2.0
-        s[S_CY2] = float(scene.centroid[1]) / 2.0
-        s[S_FX] = float(scene.focal[0])
-        s[S_FY] = float(scene.focal[1])
-        s[S_FROT] = frot
-        s[S_UX] = np.cos(frot)
-        s[S_UY] = np.sin(frot)
-        s[S_MNX], s[S_MNY], s[S_MXX], s[S_MXY] = mnx, mny, mxx, mxy
-        s[S_SIGX], s[S_SIGY], s[S_SIGT] = sigx, sigy, cfg.sigma_t
-        s[S_BETA] = cfg.beta
-        s[S_NOBJ] = float(np.sum(mask > 0))
-        s[S_NUNF] = float(np.sum(ok))
-        s[S_ADAPTR] = cfg.adapt_rate
-        s[S_TARGET] = cfg.target_accept
-        s[S_PI] = cfg.mode.pi
-        s[S_DENOM] = denom if denom > 0 else 1.0
+def _pack(scene: Scene, cfg: SamplerConfig) -> PackedScene:
+    """:func:`pack_scene`'s packing, made afresh."""
+    dev = scene.device
+    n0 = scene.n_pad_objs
 
-        parity = cfg.mode is CostMode.PARITY
-        clr_real = np.flatnonzero(npf(scene.clr_mask) > 0)
-        clr_src = npi(scene.clr_src)[clr_real]
-        # Kernel.cu:456 quirk: PARITY surface area anchors clearance i to object i
-        anchor = np.minimum(clr_real, n0 - 1).astype(np.int32) if parity else clr_src
-        clr_p = np.stack(
-            [npf(getattr(scene.clr_rects, f))[clr_real]
-             for f in ("v0x", "tail_min_x", "min_x", "min_y", "max_x", "max_y")],
-            axis=1,
-        ).reshape(-1, 6)
+    def npf(t):
+        return t.detach().cpu().numpy().astype(np.float32)
 
-        rel_idx = np.stack([npi(scene.rel_src), npi(scene.rel_tgt)], 1)
-        ang_idx = np.stack([npi(scene.ang_src), npi(scene.ang_tgt)], 1)
-        clr_idx = np.stack([clr_src, anchor], 1).reshape(-1, 2)
-        # the kernel loads pose lanes at these indices unchecked
-        for name, idx in (("relationship", rel_idx), ("angle", ang_idx), ("clearance", clr_idx)):
-            if idx.size and (idx.min() < 0 or idx.max() >= n0):
-                raise ValueError(f"{name} object index out of range [0, {n0}): {idx.tolist()}")
+    def npi(t):
+        return t.detach().cpu().numpy().astype(np.int32)
 
-        def ti(a):
-            return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
+    mask = npf(scene.obj_mask)
+    ok = mask * (np.float32(1.0) - npf(scene.frozen))
+    sizes = npf(scene.sizes)
+    planes = np.zeros((N_PLANES, n0), np.float32)
+    planes[P_MASK] = mask
+    planes[P_OK] = ok
+    planes[P_RANK] = np.cumsum(ok, dtype=np.float32)
+    planes[P_AREA] = sizes[:, 0] * sizes[:, 1]
+    for p, name in ((P_OV0X, "v0x"), (P_OTAILX, "tail_min_x"), (P_OMINX, "min_x"),
+                    (P_OMINY, "min_y"), (P_OMAXX, "max_x"), (P_OMAXY, "max_y")):
+        planes[p] = npf(getattr(scene.off_rects, name))
+    unf = np.flatnonzero(ok > 0).astype(np.int32)
 
-        def tf(a):
-            return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+    mnx, mny, mxx, mxy = (float(v) for v in scene.surface_bounds())
+    sigx = (mxx - mnx) / 16.0
+    sigy = (mxy - mny) / 16.0
+    if cfg.sigma_xy_override > 0:
+        sigx = sigy = cfg.sigma_xy_override
+    frot = np.float32(float(scene.focal_rot))
+    denom = _block_sum(torch.as_tensor(planes[P_AREA] * mask)[None])[0].item()
+    s = np.zeros(N_SCALARS, np.float32)
+    s[S_WPW] = float(scene.w_pairwise)
+    s[S_WVB] = float(scene.w_visual_balance)
+    s[S_WFP] = float(scene.w_focal)
+    s[S_WSY] = float(scene.w_symmetry)
+    s[S_WCL] = float(scene.w_clearance)
+    s[S_WOL] = float(scene.w_offlimits)
+    s[S_WSA] = float(scene.w_surface_area)
+    s[S_CX2] = float(scene.centroid[0]) / 2.0
+    s[S_CY2] = float(scene.centroid[1]) / 2.0
+    s[S_FX] = float(scene.focal[0])
+    s[S_FY] = float(scene.focal[1])
+    s[S_FROT] = frot
+    s[S_UX] = np.cos(frot)
+    s[S_UY] = np.sin(frot)
+    s[S_MNX], s[S_MNY], s[S_MXX], s[S_MXY] = mnx, mny, mxx, mxy
+    s[S_SIGX], s[S_SIGY], s[S_SIGT] = sigx, sigy, cfg.sigma_t
+    s[S_BETA] = cfg.beta
+    s[S_NOBJ] = float(np.sum(mask > 0))
+    s[S_NUNF] = float(np.sum(ok))
+    s[S_ADAPTR] = cfg.adapt_rate
+    s[S_TARGET] = cfg.target_accept
+    s[S_PI] = cfg.mode.pi
+    s[S_DENOM] = denom if denom > 0 else 1.0
 
-        return PackedScene(
-            planes=tf(planes),
-            unf_idx=ti(unf if unf.size else np.zeros(1, np.int32)),
-            scalars=tf(s),
-            rel_idx=ti(rel_idx),
-            rel_p=tf(np.stack([npf(scene.rel_lo), npf(scene.rel_hi), npf(scene.rel_mask)], 1)),
-            ang_idx=ti(ang_idx),
-            ang_p=tf(np.stack([npf(scene.ang_min), npf(scene.ang_max), npf(scene.ang_mask)], 1)),
-            clr_idx=ti(clr_idx),
-            clr_p=tf(clr_p),
-            parity=parity,
-            track_off=tracks_off(scene, cfg),
-            adapt=cfg.adapt,
-            moves=cfg.n_moves_per_step,
-            accept_draws=cfg.accept_draws,
-        )
+    parity = cfg.mode is CostMode.PARITY
+    clr_real = np.flatnonzero(npf(scene.clr_mask) > 0)
+    clr_src = npi(scene.clr_src)[clr_real]
+    # Kernel.cu:456 quirk: PARITY surface area anchors clearance i to object i
+    anchor = np.minimum(clr_real, n0 - 1).astype(np.int32) if parity else clr_src
+    clr_p = np.stack(
+        [npf(getattr(scene.clr_rects, f))[clr_real]
+         for f in ("v0x", "tail_min_x", "min_x", "min_y", "max_x", "max_y")],
+        axis=1,
+    ).reshape(-1, 6)
+
+    rel_idx = np.stack([npi(scene.rel_src), npi(scene.rel_tgt)], 1)
+    ang_idx = np.stack([npi(scene.ang_src), npi(scene.ang_tgt)], 1)
+    clr_idx = np.stack([clr_src, anchor], 1).reshape(-1, 2)
+    # the kernel loads pose lanes at these indices unchecked
+    for name, idx in (("relationship", rel_idx), ("angle", ang_idx), ("clearance", clr_idx)):
+        if idx.size and (idx.min() < 0 or idx.max() >= n0):
+            raise ValueError(f"{name} object index out of range [0, {n0}): {idx.tolist()}")
+
+    def ti(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
+
+    def tf(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    return PackedScene(
+        planes=tf(planes),
+        unf_idx=ti(unf if unf.size else np.zeros(1, np.int32)),
+        scalars=tf(s),
+        rel_idx=ti(rel_idx),
+        rel_p=tf(np.stack([npf(scene.rel_lo), npf(scene.rel_hi), npf(scene.rel_mask)], 1)),
+        ang_idx=ti(ang_idx),
+        ang_p=tf(np.stack([npf(scene.ang_min), npf(scene.ang_max), npf(scene.ang_mask)], 1)),
+        clr_idx=ti(clr_idx),
+        clr_p=tf(clr_p),
+        parity=parity,
+        track_off=tracks_off(scene, cfg),
+        adapt=cfg.adapt,
+        moves=cfg.n_moves_per_step,
+        accept_draws=cfg.accept_draws,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,12 @@ first vertex's x (``v0x``) and the min over the other three (``tail_min_x``).
 
 ``scene_from_numpy`` / ``Scene.to_numpy`` carry a scene between this package
 and ``mh_tpu`` as numpy arrays keyed by field name.
+
+A scene remembers what callers derive from it while its tensors stay as
+they are (:meth:`Scene.memo`): its copy on each other device and, on
+each device, the fused kernel's packed inputs and the counts read back to
+the host, so a caller that passes one scene call after call reads and
+uploads it once per device.
 """
 
 from __future__ import annotations
@@ -80,6 +86,38 @@ def _pad_rects(r: RectSet, n: int) -> RectSet:
     return _map_tensors(r, lambda a: torch.nn.functional.pad(a, (0, n - a.shape[0])))
 
 
+def _tensor_leaves(obj) -> list:
+    """Every tensor of ``obj``: itself, or the leaves of a dataclass's fields."""
+    if isinstance(obj, Tensor):
+        return [obj]
+    if isinstance(obj, Scene):
+        return list(obj._get_memo().leaves)
+    if not dataclasses.is_dataclass(obj):
+        return []
+    return [t for f in dataclasses.fields(obj) for t in _tensor_leaves(getattr(obj, f.name))]
+
+
+def _stamp(tensors):
+    """Each tensor's storage address and version counter (which torch bumps
+    on every in-place write), or None for an inference tensor, which keeps
+    no version."""
+    try:
+        return tuple((t.data_ptr(), t._version) for t in tensors)
+    except RuntimeError:
+        return None
+
+
+def _normalise(device) -> torch.device:
+    """``device`` as a tensor on it names it: ``"cuda"`` with the current
+    card's index, ``"cpu"`` without one."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    if device.type == "cpu":
+        return torch.device("cpu")
+    return device
+
+
 def _map_tensors(obj, fn):
     """Apply ``fn`` to every tensor leaf of a RectSet/Scene dataclass."""
     out = {}
@@ -96,6 +134,16 @@ class Scene:
     Replaces the reference's ``Surface`` + relationship/clearance/off-limits
     arrays (``Kernel.cu:79-117``); field for field the same as
     ``mh_tpu.models.scene.Scene``.
+
+    A scene keeps a memo, outside its fields, of values derived from it
+    (:meth:`memo`, :meth:`to`): each entry holds the storage address and
+    version counter of every tensor of the scene and of the value, and
+    counts only while none has changed. An in-place
+    write through torch bumps a version, so the next call derives afresh;
+    a write made outside torch (through ``.data``, or through a numpy view
+    of a CPU tensor) is not seen, as the frozen dataclass promises no such
+    write. The memo lives and dies with the scene and is left out of
+    copies and pickles.
     """
 
     # objects
@@ -147,7 +195,52 @@ class Scene:
         return self.obj_mask.device
 
     def to(self, device) -> "Scene":
-        return _map_tensors(self, lambda t: t.to(device))
+        """This scene on ``device``: itself where every tensor is there
+        already, else its copy there, made once and kept in the memo."""
+        device = _normalise(device)
+        leaves = self._get_memo().leaves
+        if all(t.device == device for t in leaves):
+            return self
+        return self.memo(("to", device), lambda: _map_tensors(self, lambda t: t.to(device)))
+
+    def memo_get(self, key):
+        """The value stored under ``key`` if no tensor of this scene or of
+        the value has been written or replaced since, else None."""
+        memo = self._get_memo()
+        entry = memo.entries.get(key)
+        if entry is None:
+            return None
+        stamp, value, value_stamp = entry
+        if stamp != _stamp(memo.leaves) or value_stamp != _stamp(_tensor_leaves(value)):
+            return None
+        return value
+
+    def memo_put(self, key, value):
+        """Store ``value`` under ``key``, stamped with the state of this
+        scene's tensors and its own; returns ``value``. Inference tensors
+        keep no version, so a value where either holds one is not stored."""
+        memo = self._get_memo()
+        stamp, value_stamp = _stamp(memo.leaves), _stamp(_tensor_leaves(value))
+        if stamp is not None and value_stamp is not None:
+            memo.entries[key] = (stamp, value, value_stamp)
+        return value
+
+    def memo(self, key, make):
+        """The value under ``key`` (:meth:`memo_get`), made by ``make()``
+        and stored where there is none."""
+        value = self.memo_get(key)
+        return self.memo_put(key, make()) if value is None else value
+
+    def _get_memo(self) -> "_Memo":
+        memo = self.__dict__.get("_memo")
+        if memo is None:
+            memo = _Memo(tuple(t for f in dataclasses.fields(self)
+                               for t in _tensor_leaves(getattr(self, f.name))))
+            object.__setattr__(self, "_memo", memo)
+        return memo
+
+    def __getstate__(self):
+        return {k: v for k, v in self.__dict__.items() if k != "_memo"}
 
     def surface_bounds(self):
         """(min_x, min_y, max_x, max_y) of the surface rectangle (untranslated,
@@ -165,6 +258,17 @@ class Scene:
             return v.detach().cpu().numpy()
 
         return {f.name: conv(getattr(self, f.name)) for f in dataclasses.fields(self)}
+
+
+class _Memo:
+    """A scene's tensors, in field order, and its memo entries: key ->
+    (the tensors' stamp, value, the value's stamp)."""
+
+    __slots__ = ("leaves", "entries")
+
+    def __init__(self, leaves: tuple):
+        self.leaves = leaves
+        self.entries = {}
 
 
 def scene_from_numpy(fields: Mapping, device=None) -> Scene:

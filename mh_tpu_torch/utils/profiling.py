@@ -7,17 +7,20 @@ reads the clock (CUDA work returns before it is done, so a phase ends with
 ranges the package opens on its own call path. Kernel times on the card
 come from CUDA events (``chip_smoke.py``), not from these.
 
-``suggest_layouts`` opens seven spans on the caller's thread, nested by
+``suggest_layouts`` opens eight spans on the caller's thread, nested by
 time, which a trace shows on the clock of the card's kernels and copies
 (the Chrome trace :func:`trace` writes, or any ``torch.profiler`` run):
 
 - ``mh.suggest_layouts``: the whole call; its self time is the dispatch
-  (argument checks, ``Scene.to``, the mask counts read back, the engine
-  choice, ``chain_mesh()``, logging);
+  (argument checks, ``Scene.to``, the mask counts read back once per
+  scene, the engine choice, ``chain_mesh()``, logging);
 - ``mh.scene_build``: ``SceneSpec.build`` and ``initial_pose`` when a
   ``SceneSpec`` is passed;
-- ``mh.pack_scene``: ``pack_scene``, the scene's host reads, packing and
-  uploads, once per distinct device;
+- ``mh.pack_scene``: ``pack_scene``, once per distinct device: the lookup
+  in the scene's memo and, where it holds no valid packing, the scene's
+  host reads, packing and uploads;
+- ``mh.pack_hit``: inside ``mh.pack_scene``, opened only where the memo
+  held the packing (none opens on a packing made afresh);
 - ``mh.launch``: the fused kernel's launch wrapper, once per shard (on the
   CPU, the plain version's run);
 - ``mh.split``: the shared start expanded and each shard's slice moved to

@@ -542,3 +542,79 @@ def test_incremental_state_on_card_equals_fresh_bitwise(cuda):
                             TI._sym_from_gmax(gmax, scene))
     for carried, want in ((state.a_mat, fresh), (state.gmax, gmax), (state.total, total)):
         assert torch.equal(carried.view(torch.int32), want.view(torch.int32))
+
+
+def test_memoised_calls_equal_fresh_ones_on_one_card(cuda):
+    """A scene passed call after call is packed once; every call gives the
+    bits of a freshly built scene. 66 chains run on one card on any host
+    (no host's cards divide them)."""
+    spec = dataclasses.replace(mh_tpu_torch.demo_scene(32), w_offlimits=-1.5)
+    scene, pose0 = spec.build(device=cuda), spec.initial_pose(device=cuda)
+    for mode in ("PARITY", "FIXED"):
+        cfg = mh_tpu_torch.SamplerConfig(iterations=50, n_chains=66,
+                                         mode=mh_tpu_torch.CostMode[mode])
+        first = mh_tpu_torch.suggest_layouts(scene, cfg, 3, pose0)
+        packs = TF.pack_scene.packs
+        again = mh_tpu_torch.suggest_layouts(scene, cfg, 3, pose0)
+        assert TF.pack_scene.packs == packs
+        fresh = mh_tpu_torch.suggest_layouts(spec.build(device=cuda), cfg, 3, pose0)
+        for field in ("points", "costs", "accept_rate", "step_scale"):
+            assert getattr(again, field).tobytes() == getattr(first, field).tobytes()
+            assert getattr(again, field).tobytes() == getattr(fresh, field).tobytes()
+        out = TF.run_chains_fused(4, pose0, scene, cfg, 64, 40)
+        want = TF.run_chains_fused(4, pose0, spec.build(device=cuda), cfg, 64, 40)
+        assert all(torch.equal(g, w) for g, w in zip(out, want))
+
+
+def test_a_memo_hit_reads_nothing_back(cuda):
+    """On a hit, ``Scene.to``, ``tracks_off`` and ``pack_scene`` make no
+    call that waits on the card."""
+    spec = dataclasses.replace(mh_tpu_torch.demo_scene(32), w_offlimits=-1.5)
+    scene = spec.build(device=cuda)
+    cfg = mh_tpu_torch.SamplerConfig(mode=mh_tpu_torch.CostMode.FIXED)
+    pk = TF.pack_scene(scene.to("cuda"), cfg)
+    assert TF.tracks_off(scene, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert scene.to("cuda") is scene and scene.to(cuda) is scene
+        assert TF.tracks_off(scene, cfg)
+        assert TF.pack_scene(scene, cfg) is pk
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_every_card_calls_reuse_each_cards_copy_and_see_writes(cuda):
+    """On the every-card path the copy and the packing on each other card
+    are made once; an in-place write to card 0's scene reaches them in the
+    next call, which equals a fresh build with the written value."""
+    k = torch.cuda.device_count()
+    if k < 2:
+        pytest.skip("needs a second card")
+    spec = mh_tpu_torch.demo_scene(32)
+    scene, pose0 = spec.build(device=cuda), spec.initial_pose(device=cuda)
+    cfg = mh_tpu_torch.SamplerConfig(iterations=50, n_chains=16 * k)
+
+    def call(s):
+        launches = TF.fused_mh_cuda.launches
+        res = mh_tpu_torch.suggest_layouts(s, cfg, 8, pose0)
+        assert TF.fused_mh_cuda.launches == launches + k
+        return res
+
+    def assert_bitwise(got, want):
+        for field in ("points", "costs", "accept_rate", "step_scale"):
+            assert getattr(got, field).tobytes() == getattr(want, field).tobytes(), field
+
+    first = call(scene)
+    copies = [scene.to(torch.device("cuda", i)) for i in range(1, k)]
+    packs = TF.pack_scene.packs
+    assert_bitwise(call(scene), first)
+    assert TF.pack_scene.packs == packs
+    assert all(scene.to(f"cuda:{i}") is c for i, c in enumerate(copies, 1))
+    assert_bitwise(first, call(spec.build(device=cuda)))
+    packs = TF.pack_scene.packs
+    scene.w_symmetry.fill_(-0.5)
+    written = call(scene)
+    assert TF.pack_scene.packs == packs + k
+    assert all(scene.to(f"cuda:{i}") is not c for i, c in enumerate(copies, 1))
+    assert_bitwise(written, call(dataclasses.replace(spec, w_symmetry=-0.5).build(device=cuda)))
