@@ -921,9 +921,17 @@ def _chain_poses(pose0: Tensor, n_chains: int, device) -> Tensor:
 
 def _run(pk: PackedScene, pose0: Tensor, seed: int, iterations: int, first_chain: int):
     """Chains ``first_chain ..`` of ``pose0`` on the packed scene's device:
-    the CUDA kernel there, or on the CPU its plain version."""
+    the CUDA kernel there, or on the CPU its plain version. Inside
+    ``mh.launch`` a range of no work names the off-limits path of a
+    weighted FIXED launch: ``mh.off_state`` where the slab state is kept
+    (:func:`off_incremental`), ``mh.off_rows`` where the rows are summed
+    from scratch."""
     device = pk.planes.device
     with span("mh.launch"):
+        if pk.track_off:
+            with span("mh.off_state" if off_incremental(pk.moves, pk.n, pk.n_clr)
+                      else "mh.off_rows"):
+                pass
         pose0 = pose0.contiguous()
         if device.type == "cuda":
             return fused_mh_cuda(pk, pose0, seed, iterations, first_chain)

@@ -7,7 +7,7 @@ reads the clock (CUDA work returns before it is done, so a phase ends with
 ranges the package opens on its own call path. Kernel times on the card
 come from CUDA events (``chip_smoke.py``), not from these.
 
-``suggest_layouts`` opens eight spans on the caller's thread, nested by
+``suggest_layouts`` opens these spans on the caller's thread, nested by
 time, which a trace shows on the clock of the card's kernels and copies
 (the Chrome trace :func:`trace` writes, or any ``torch.profiler`` run):
 
@@ -23,6 +23,10 @@ time, which a trace shows on the clock of the card's kernels and copies
   held the packing (none opens on a packing made afresh);
 - ``mh.launch``: the fused kernel's launch wrapper, once per shard (on the
   CPU, the plain version's run);
+- ``mh.off_state`` / ``mh.off_rows``: inside ``mh.launch``, a range of no
+  work opened only in a weighted FIXED launch (the off-limits term in the
+  loop): ``mh.off_state`` where the kernel keeps the off-limits slab state,
+  ``mh.off_rows`` where it sums the slab rows from scratch;
 - ``mh.split``: the shared start expanded and each shard's slice moved to
   its card (a mesh, or every card);
 - ``mh.gather``: the shards' outputs joined on the first shard's card;

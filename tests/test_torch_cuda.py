@@ -618,3 +618,33 @@ def test_every_card_calls_reuse_each_cards_copy_and_see_writes(cuda):
     assert TF.pack_scene.packs == packs + k
     assert all(scene.to(f"cuda:{i}") is not c for i, c in enumerate(copies, 1))
     assert_bitwise(written, call(dataclasses.replace(spec, w_symmetry=-0.5).build(device=cuda)))
+
+
+@pytest.mark.parametrize("n,mode,w_off,want", [
+    (100, "FIXED", -1.5, ["mh.off_state"]), (8, "FIXED", -1.5, ["mh.off_rows"]),
+    (100, "FIXED", 0.0, []), (100, "PARITY", -1.5, [])])
+def test_launch_names_its_off_limits_path_and_reads_nothing_back(cuda, n, mode, w_off, want):
+    """On the card a weighted FIXED launch opens one range of no work inside
+    ``mh.launch``: ``mh.off_state`` where the kernel keeps its off-limits
+    slab state (100 objects), ``mh.off_rows`` where it sums the rows from
+    scratch (8 objects); PARITY and unweighted FIXED open neither. Deciding
+    makes no call that waits on the card."""
+    spec = dataclasses.replace(mh_tpu_torch.demo_scene(n), w_offlimits=w_off)
+    cfg = mh_tpu_torch.SamplerConfig(mode=mh_tpu_torch.CostMode[mode])
+    pk = TF.pack_scene(spec.build(device=cuda), cfg)
+    pose0 = spec.initial_pose(device=cuda).expand(64, n, 6).contiguous()
+    TF._run(pk, pose0, 1, 20, 0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            TF._run(pk, pose0, 2, 20, 0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    off = [e for e in prof.events() if e.name.startswith("mh.off_")]
+    assert [e.name for e in off] == want
+    launch = next(e for e in prof.events() if e.name == "mh.launch")
+    for e in off:
+        assert launch.time_range.start <= e.time_range.start <= e.time_range.end \
+            <= launch.time_range.end

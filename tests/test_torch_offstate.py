@@ -263,3 +263,42 @@ def test_weighted_fixed_matches_jax_incremental_kernel(n, moves, draws):
                                      3, 40, incremental=True)
     same = assert_chains_agree([np.asarray(a) for a in jout], [a.numpy() for a in tout], 8)
     assert same.sum() >= 6 and (tout[2][torch.as_tensor(same)] > 0).any()
+
+
+# ---- the off-limits path's marker in the launch -----------------------------
+def launch_spans(n: int, mode: str, w_off: float) -> list[list[str]]:
+    """The ``mh.off_*`` ranges one ``_run`` opens on the CPU, each with the
+    names of the ``mh.*`` ranges that enclose it."""
+    spec = dataclasses.replace(mh_tpu_torch.demo_scene(n), w_offlimits=w_off)
+    cfg = mh_tpu_torch.SamplerConfig(mode=mh_tpu_torch.CostMode[mode])
+    pk = TF.pack_scene(spec.build(), cfg)
+    pose0 = spec.initial_pose().expand(2, n, 6)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        TF._run(pk, pose0, 5, 3, 0)
+    spans = [e for e in prof.events() if e.name.startswith("mh.")]
+    return [[e.name] + [o.name for o in spans if o is not e
+                        and o.time_range.start <= e.time_range.start
+                        and e.time_range.end <= o.time_range.end]
+            for e in spans if e.name.startswith("mh.off_")]
+
+
+@pytest.mark.parametrize("n,mode,w_off,want", [
+    (64, "FIXED", -1.5, "mh.off_state"),  # 8 slabs of 8: the state is kept
+    (100, "FIXED", -1.5, "mh.off_state"),
+    (8, "FIXED", -1.5, "mh.off_rows"),  # one slab: rows from scratch
+    (32, "FIXED", -1.5, "mh.off_rows"),
+    (64, "FIXED", 0.0, None),
+    (64, "PARITY", -1.5, None),
+    (8, "PARITY", 0.0, None)])
+def test_launch_names_its_off_limits_path(n, mode, w_off, want):
+    """A weighted FIXED launch opens exactly one range of no work inside
+    ``mh.launch`` that names its off-limits path: ``mh.off_state`` where
+    ``off_incremental`` holds, ``mh.off_rows`` where it does not; PARITY
+    and unweighted FIXED open neither."""
+    got = launch_spans(n, mode, w_off)
+    if want is None:
+        assert got == []
+    else:
+        assert got == [[want, "mh.launch"]]
+        assert (want == "mh.off_state") is TF.off_incremental(1, n, len(
+            mh_tpu_torch.demo_scene(n).clearances))
