@@ -216,6 +216,9 @@ def _dispatch_layouts(scene, cfg, key, pose0, engine, mesh, objs_devices, logger
                                            cfg.iterations, mesh)
         pose, breakdown, n_acc, scale = out
         with span("mh.readback"):
+            if pose.is_cuda:
+                pose, breakdown, n_acc, scale = _read_pinned(
+                    (pose[:, :n_real, :], breakdown, n_acc, scale))
             return LayoutResult(
                 points=pose[:, :n_real, :].cpu().numpy(),
                 costs=breakdown.cpu().numpy(),
@@ -253,6 +256,23 @@ def _objs_mesh(device: torch.device, k: int) -> Mesh:
     else:
         n, devices = k, [device] * k
     return Mesh(np.array(devices, dtype=object).reshape(n // k, k), (CHAINS_AXIS, OBJS_AXIS))
+
+
+def _read_pinned(tensors):
+    """``tensors`` (on one card) copied to the host into page-locked tensors
+    from PyTorch's caching host allocator: every copy queued on the card's
+    current stream, the kernel's, then one wait for all of them. Each block
+    goes to the caller with its array and back to the allocator's cache when
+    that is dropped, so calls in a loop reuse a few blocks (no allocation,
+    mapping or page fault once warm) and a result the caller holds never
+    changes. Opens ``mh.readback_pinned``, a range of no work."""
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    with span("mh.readback_pinned"):
+        pass
+    return host
 
 
 def _result_from_state(states, n_real: int) -> LayoutResult:

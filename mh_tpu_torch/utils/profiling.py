@@ -30,7 +30,10 @@ time, which a trace shows on the clock of the card's kernels and copies
 - ``mh.split``: the shared start expanded and each shard's slice moved to
   its card (a mesh, or every card);
 - ``mh.gather``: the shards' outputs joined on the first shard's card;
-- ``mh.readback``: the fused result copied into the ``LayoutResult``.
+- ``mh.readback``: the fused result copied into the ``LayoutResult``;
+- ``mh.readback_pinned``: inside ``mh.readback``, a range of no work
+  opened only where the result, on a card, went into page-locked host
+  memory with one wait for every copy (none opens on a CPU result).
 """
 
 from __future__ import annotations

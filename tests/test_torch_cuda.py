@@ -648,3 +648,49 @@ def test_launch_names_its_off_limits_path_and_reads_nothing_back(cuda, n, mode, 
     for e in off:
         assert launch.time_range.start <= e.time_range.start <= e.time_range.end \
             <= launch.time_range.end
+
+
+@pytest.mark.parametrize("path", ["one_card", "every_card"])
+def test_results_are_read_into_held_pinned_memory(cuda, path):
+    """On the card a call's result goes into page-locked host memory with
+    one wait, inside ``mh.readback`` (one ``mh.readback_pinned`` a call):
+    bitwise the ``.cpu().numpy()`` readback of the same outputs, and a held
+    result unchanged by the next calls with other keys. 66 chains run on
+    one card on any host; ``16 k`` span every card where there are 2+."""
+    k = torch.cuda.device_count()
+    if path == "every_card" and k < 2:
+        pytest.skip("needs a second card")
+    spec = dataclasses.replace(mh_tpu_torch.demo_scene(32), w_offlimits=-1.5)
+    scene, pose0 = spec.build(device=cuda), spec.initial_pose(device=cuda)
+    cfg = mh_tpu_torch.SamplerConfig(iterations=50, n_chains=66 if path == "one_card" else 16 * k,
+                                     mode=mh_tpu_torch.CostMode.FIXED)
+    fields = ("points", "costs", "accept_rate", "step_scale")
+    first = mh_tpu_torch.suggest_layouts(scene, cfg, 1, pose0)
+    kept = {f: getattr(first, f).copy() for f in fields}
+    launches = TF.fused_mh_cuda.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        later = [mh_tpu_torch.suggest_layouts(scene, cfg, key, pose0) for key in (2, 3)]
+    assert TF.fused_mh_cuda.launches == launches + 2 * every_card_launches(cfg.n_chains)
+    for field in fields:
+        assert getattr(first, field).tobytes() == kept[field].tobytes(), field
+    assert all(r.points.tobytes() != kept["points"].tobytes() for r in later)
+    for res in [first, *later]:
+        for field in ("points", "costs", "step_scale"):
+            assert torch.from_numpy(getattr(res, field)).is_pinned(), field
+        assert res.points.flags["C_CONTIGUOUS"] and res.costs.flags["C_CONTIGUOUS"]
+    pose, breakdown, n_acc, scale = TF.run_chains_fused(1, pose0, scene, cfg, cfg.n_chains,
+                                                        cfg.iterations)
+    want = {"points": pose[:, :32, :].cpu().numpy(), "costs": breakdown.cpu().numpy(),
+            "accept_rate": n_acc.cpu().numpy().astype("float64") / cfg.iterations,
+            "step_scale": scale.cpu().numpy()}
+    for field in fields:
+        g, w = getattr(first, field), want[field]
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), field
+        assert g.tobytes() == w.tobytes(), field
+    reads = [e for e in prof.events() if e.name == "mh.readback"]
+    pinned = [e for e in prof.events() if e.name == "mh.readback_pinned"]
+    assert len(reads) == len(pinned) == 2
+    for outer, inner in zip(sorted(reads, key=lambda e: e.time_range.start),
+                            sorted(pinned, key=lambda e: e.time_range.start)):
+        assert outer.time_range.start <= inner.time_range.start <= inner.time_range.end \
+            <= outer.time_range.end
