@@ -216,14 +216,15 @@ def _dispatch_layouts(scene, cfg, key, pose0, engine, mesh, objs_devices, logger
                                            cfg.iterations, mesh)
         pose, breakdown, n_acc, scale = out
         with span("mh.readback"):
+            out = (pose[:, :n_real, :], breakdown, n_acc, scale)
             if pose.is_cuda:
-                pose, breakdown, n_acc, scale = _read_pinned(
-                    (pose[:, :n_real, :], breakdown, n_acc, scale))
+                out = _read_pinned(out)
+            pose, breakdown, n_acc, scale = out
             return LayoutResult(
-                points=pose[:, :n_real, :].cpu().numpy(),
-                costs=breakdown.cpu().numpy(),
-                accept_rate=n_acc.cpu().numpy().astype(np.float64) / max(cfg.iterations, 1),
-                step_scale=scale.cpu().numpy(),
+                points=pose.numpy(),
+                costs=breakdown.numpy(),
+                accept_rate=n_acc.numpy().astype(np.float64) / max(cfg.iterations, 1),
+                step_scale=scale.numpy(),
             ), engine
 
     if mesh is not None and engine == "torch_graph":

@@ -24,6 +24,8 @@ from mh_tpu_torch.kernels import fused_mh as TF
 from mh_tpu_torch.parallel.mesh import chain_mesh
 from mh_tpu_torch.utils.runlog import RunLogger
 
+import test_torch_threads  # noqa: F401
+
 # tests/test_torch_fused.py states these and why a few chains may part
 RTOL, ATOL, POSE_ATOL, MAX_DIVERGENT = 2e-4, 2e-3, 1e-4, 2
 

@@ -22,6 +22,7 @@ from mh_tpu.utils import serialization as JS
 import mh_tpu_torch
 from mh_tpu_torch import cli
 from mh_tpu_torch.utils import serialization as TS
+import test_torch_threads  # noqa: F401
 from test_torch_scene import assert_fields_equal, jax_scene_fields
 
 RTOL, ATOL, POSE_ATOL, MAX_DIVERGENT = 2e-4, 2e-3, 1e-4, 2

@@ -19,6 +19,7 @@ from mh_tpu.ops import geometry as JG
 from mh_tpu_torch import CostMode
 from mh_tpu_torch.ops import costs as TC
 from mh_tpu_torch.ops import geometry as TG
+import test_torch_threads  # noqa: F401
 from test_costs import random_spec
 from test_torch_scene import to_torch_scene
 

@@ -29,6 +29,8 @@ from mh_tpu_torch.ops import geometry as geo
 from mh_tpu_torch.sampler import generic as TG
 from mh_tpu_torch.sampler import prng
 
+import test_torch_threads  # noqa: F401
+
 # the example's proper target: FIXED mode with positive weights
 # (examples/advanced_sampling.py:104-110)
 SANE = dict(w_pairwise=2.0, w_visual_balance=1.0, w_focal=2.0, w_symmetry=2.0,

@@ -12,6 +12,8 @@ from pathlib import Path
 
 import pytest
 
+import test_torch_threads  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 # (module, toy arguments, a line the run must print)
 EXAMPLES = [

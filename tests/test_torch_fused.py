@@ -36,6 +36,7 @@ import mh_tpu_torch
 from mh_tpu_torch.kernels import _build
 from mh_tpu_torch.kernels import counter_rng
 from mh_tpu_torch.kernels import fused_mh as TF
+import test_torch_threads  # noqa: F401
 from test_costs import random_spec
 from test_torch_scene import to_torch_scene
 

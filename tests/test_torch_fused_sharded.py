@@ -22,6 +22,7 @@ from mh_tpu.parallel.mesh import chain_mesh as J_mesh
 import mh_tpu_torch.api as api
 from mh_tpu_torch.kernels import fused_mh as TF
 from mh_tpu_torch.parallel.mesh import chain_mesh
+import test_torch_threads  # noqa: F401
 from test_torch_scene import to_torch_scene
 
 

@@ -27,6 +27,7 @@ import mh_tpu_torch
 from mh_tpu.sampler import incremental as JI
 from mh_tpu_torch.sampler import incremental as TI
 from mh_tpu_torch.sampler import prng
+import test_torch_threads  # noqa: F401
 from test_torch_mh import ATOL, MAX_DIVERGENT, POSE_ATOL, RTOL, NoHostRead, _guard
 from test_torch_scene import to_torch_scene
 

@@ -30,6 +30,8 @@ from mh_tpu_torch.sampler import hmc as TH
 from mh_tpu_torch.sampler import mala as TM
 from mh_tpu_torch.sampler import prng
 
+import test_torch_threads  # noqa: F401
+
 SANE = dict(w_pairwise=2.0, w_visual_balance=1.0, w_focal=2.0, w_symmetry=2.0,
             w_clearance=2.0, w_offlimits=1.0, w_surface_area=2.0)
 MEAN, VAR = [1.5, -0.5, 0.0], [1.0, 0.25, 2.0]

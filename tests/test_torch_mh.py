@@ -26,6 +26,7 @@ import mh_tpu_torch
 from mh_tpu.sampler import mh as JM
 from mh_tpu_torch.sampler import mh as TM
 from mh_tpu_torch.sampler import prng
+import test_torch_threads  # noqa: F401
 from test_torch_scene import to_torch_scene
 
 RTOL, ATOL, POSE_ATOL, MAX_DIVERGENT = 2e-4, 2e-3, 1e-4, 2

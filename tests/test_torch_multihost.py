@@ -41,6 +41,8 @@ from mh_tpu_torch.sampler import prng
 from mh_tpu_torch.sampler.smc import run_smc
 from mh_tpu_torch.sampler.tempering import run_tempered
 
+import test_torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER_TIMEOUT = 120.0
 MAX_DIVERGENT, POSE_ATOL = 2, 1e-4

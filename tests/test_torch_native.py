@@ -29,6 +29,7 @@ import mh_tpu_torch
 from mh_tpu.native import bridge as JB
 from mh_tpu_torch.native import _build, abi
 from mh_tpu_torch.native import bridge as TB
+import test_torch_threads  # noqa: F401
 from test_torch_api import assert_results_agree
 
 REPO = Path(__file__).resolve().parents[1]

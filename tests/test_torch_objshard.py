@@ -27,6 +27,7 @@ from mh_tpu_torch.parallel.objshard import (
 )
 from mh_tpu_torch.sampler import mh as TM
 from mh_tpu_torch.sampler import prng
+import test_torch_threads  # noqa: F401
 from test_costs import random_spec
 from test_torch_scene import to_torch_scene
 

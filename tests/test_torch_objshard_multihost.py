@@ -38,6 +38,7 @@ from mh_tpu_torch.parallel.objshard import (
     chain_obj_mesh, chain_rows, cost_terms_sharded, obj_mesh, run_chains_objsharded,
 )
 from mh_tpu_torch.sampler import prng
+import test_torch_threads  # noqa: F401
 from test_torch_multihost import PARTIALS, free_port, run_workers
 
 N_OBJS, CHAINS, STEPS = 16, 4, 30

@@ -33,6 +33,7 @@ from mh_tpu.ops.costs import cost_terms as jax_cost_terms
 import mh_tpu_torch
 from mh_tpu_torch.api import auto_engine
 from mh_tpu_torch.kernels import fused_mh as TF
+import test_torch_threads  # noqa: F401
 from test_torch_fused import RTOL, ATOL, assert_chains_agree, configs, run_both
 from test_torch_scene import to_torch_scene
 from test_torch_symstate import run_pair

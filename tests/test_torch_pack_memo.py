@@ -25,6 +25,8 @@ from mh_tpu_torch.config import CostMode, SamplerConfig
 from mh_tpu_torch.kernels import fused_mh as TF
 from mh_tpu_torch.parallel.mesh import chain_mesh
 
+import test_torch_threads  # noqa: F401
+
 CFG = SamplerConfig(iterations=12, n_chains=4)
 FIXED = SamplerConfig(iterations=12, n_chains=4, mode=CostMode.FIXED)
 SPEC = dataclasses.replace(mh_tpu_torch.demo_scene(6), w_offlimits=-1.5)

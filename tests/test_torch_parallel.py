@@ -35,6 +35,7 @@ from mh_tpu_torch.sampler import mh as TM
 from mh_tpu_torch.sampler import prng
 from mh_tpu_torch.sampler.smc import run_smc
 from mh_tpu_torch.sampler.tempering import run_tempered
+import test_torch_threads  # noqa: F401
 from test_torch_mh import assert_chains_agree, jax_state_numpy, scenes
 
 MAX_DIVERGENT, MAX_ROUNDS_DIFFERENT = 2, 2

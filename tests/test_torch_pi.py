@@ -28,6 +28,8 @@ import mh_tpu_torch
 from mh_tpu_torch.kernels import counter_rng
 from mh_tpu_torch.kernels import pi_kernel as TP
 
+import test_torch_threads  # noqa: F401
+
 
 def sigma(n: int) -> float:
     """Standard deviation of 4 * hits / n with hits ~ Binomial(n, pi/4)."""

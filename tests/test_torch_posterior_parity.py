@@ -13,6 +13,7 @@ import numpy as np
 
 import mh_tpu
 import oracle_mh
+import test_torch_threads  # noqa: F401
 from mh_tpu_torch.config import SamplerConfig
 from mh_tpu_torch.models.scene import demo_scene
 from mh_tpu_torch.sampler import prng

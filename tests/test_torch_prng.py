@@ -16,6 +16,8 @@ import torch
 
 from mh_tpu_torch.sampler import prng
 
+import test_torch_threads  # noqa: F401
+
 SEEDS = [0, 1, 42, 123456789, 2**31 - 1, 2**31 + 5, 2**32 - 1, -1, -7]
 DATA = [0, 1, 2, 7, 0x7E3, 0x9A1, 2**31 - 1, 2**31, 2**31 + 3, 2**32 - 1]
 

@@ -22,6 +22,7 @@ import mh_tpu
 import mh_tpu_torch
 from mh_tpu.sampler import proposal as JP
 from mh_tpu_torch.sampler import proposal as TP
+import test_torch_threads  # noqa: F401
 from test_costs import random_spec
 from test_torch_scene import to_torch_scene
 

@@ -27,6 +27,8 @@ import sys
 import numpy as np
 import torch
 
+import test_torch_threads  # noqa: F401
+
 ROUNDS = 3  # R rounds before the crash, R after
 ROUND_ITERS = 10
 N_CHAINS = 8

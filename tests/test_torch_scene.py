@@ -13,6 +13,7 @@ import torch
 import mh_tpu
 import mh_tpu_torch
 from mh_tpu_torch.models.scene import scene_from_numpy
+import test_torch_threads  # noqa: F401
 from test_costs import random_spec
 
 

@@ -27,6 +27,7 @@ from mh_tpu.sampler.smc import systematic_resample_indices as J_resample
 from mh_tpu_torch.parallel.mesh import chain_mesh
 from mh_tpu_torch.sampler import prng
 from mh_tpu_torch.sampler.smc import run_smc, systematic_resample_indices
+import test_torch_threads  # noqa: F401
 from test_torch_scene import to_torch_scene
 
 POSE_ATOL, MAX_DIVERGENT = 1e-4, 2

@@ -24,6 +24,7 @@ import mh_tpu
 from mh_tpu.kernels import fused_mh as JF
 import mh_tpu_torch
 from mh_tpu_torch.kernels import fused_mh as TF
+import test_torch_threads  # noqa: F401
 from test_torch_fused import assert_breakdowns_self_consistent, assert_chains_agree, configs
 from test_torch_scene import to_torch_scene
 

@@ -24,6 +24,7 @@ from mh_tpu.sampler.tempering import run_tempered as J_tempered
 from mh_tpu_torch.parallel.mesh import chain_mesh
 from mh_tpu_torch.sampler import prng
 from mh_tpu_torch.sampler.tempering import geometric_ladder, run_tempered
+import test_torch_threads  # noqa: F401
 from test_torch_scene import to_torch_scene
 
 POSE_ATOL, MAX_DIVERGENT, MAX_ROUNDS_DIFFERENT = 1e-4, 2, 2

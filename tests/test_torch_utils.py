@@ -27,6 +27,8 @@ from mh_tpu_torch.utils import metrics as MET
 from mh_tpu_torch.utils.profiling import PhaseTimer, force_completion, span, trace
 from mh_tpu_torch.utils.runlog import RunLogger
 
+import test_torch_threads  # noqa: F401
+
 RTOL = 1e-4
 
 

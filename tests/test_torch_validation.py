@@ -22,6 +22,8 @@ from mh_tpu_torch.sampler import prng
 from mh_tpu_torch.sampler.mh import run_chains
 from mh_tpu_torch.utils.validation import check_state_finite, require_valid, validate_spec
 
+import test_torch_threads  # noqa: F401
+
 
 def _to_port(spec) -> mh_tpu_torch.SceneSpec:
     def conv(v):
