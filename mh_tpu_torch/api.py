@@ -16,7 +16,7 @@ from mh_tpu_torch.config import SamplerConfig
 from mh_tpu_torch.kernels.fused_mh import (
     kernel_takes, run_chains_fused, run_chains_fused_sharded, tracks_off,
 )
-from mh_tpu_torch.models.scene import Scene, SceneSpec
+from mh_tpu_torch.models.scene import Scene, SceneSpec, build_with_pose, host_twin
 from mh_tpu_torch.parallel.mesh import CHAINS_AXIS, Mesh, chain_mesh
 from mh_tpu_torch.parallel.objshard import OBJS_AXIS, run_chains_objsharded
 from mh_tpu_torch.parallel.sharded import run_chains_sharded
@@ -74,7 +74,10 @@ def suggest_layouts(
     built :class:`Scene` with ``pose0`` (f32[N, 6] or f32[n_chains, N, 6]).
     A built scene passed call after call is copied to each card, packed
     and counted once while its tensors are unchanged (its memo,
-    :meth:`Scene.memo`); a spec is built afresh in every call.
+    :meth:`Scene.memo`); a spec is built and packed afresh in every call,
+    on the host, and goes to the card in two copies (the scene with the
+    start pose, then the packing), with nothing read back before the
+    kernel.
 
     ``key``: the integer seed (the torch engines key ``prng.key(key)`` as
     ``mh_tpu`` keys ``jax.random.key(key)``; the fused kernel seeds its
@@ -166,16 +169,15 @@ def _dispatch_layouts(scene, cfg, key, pose0, engine, mesh, objs_devices, logger
             )
         spec = scene
         with span("mh.scene_build"):
-            scene = spec.build(device=device)
             if pose0 is None:
-                pose0 = spec.initial_pose(device=device)
+                scene, pose0 = build_with_pose(spec, device)
+            else:
+                scene = spec.build(device=device)
     if pose0 is None:
         raise ValueError("pose0 is required when passing a built Scene")
     device = scene.device if device is None else torch.device(device)
     scene = scene.to(device)
-    # read back once per unchanged scene (its memo)
-    n_real, n_clr = scene.memo("mask counts", lambda: (
-        int(torch.sum(scene.obj_mask > 0)), int(torch.sum(scene.clr_mask > 0))))
+    n_real, n_clr = scene.memo("mask counts", lambda: _mask_counts(scene))
     shared_pose0 = pose0.ndim == 2
 
     def log_cfg(eng: str) -> None:
@@ -245,6 +247,15 @@ def _dispatch_layouts(scene, cfg, key, pose0, engine, mesh, objs_devices, logger
     else:
         states, _ = compile_chains(scene, cfg)(tkey, pose0)
     return _result_from_state(states, n_real), engine
+
+
+def _mask_counts(scene: Scene) -> tuple[int, int]:
+    """The real objects and clearances, counted once per unchanged scene
+    (its memo): on the host twin where the scene has one, else read back."""
+    h = host_twin(scene)
+    if h is not None:
+        return int(np.sum(h["obj_mask"] > 0)), int(np.sum(h["clr_mask"] > 0))
+    return int(torch.sum(scene.obj_mask > 0)), int(torch.sum(scene.clr_mask > 0))
 
 
 def _objs_mesh(device: torch.device, k: int) -> Mesh:

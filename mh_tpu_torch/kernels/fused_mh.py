@@ -57,7 +57,7 @@ import torch.nn.functional as F
 from mh_tpu_torch.config import CostMode, SamplerConfig
 from mh_tpu_torch.kernels import _build
 from mh_tpu_torch.kernels.counter_rng import M32, counter_bits
-from mh_tpu_torch.models.scene import Scene
+from mh_tpu_torch.models.scene import Scene, host_twin, stage
 from mh_tpu_torch.ops import geometry as geo
 from mh_tpu_torch.ops.costs import floor_mod
 from mh_tpu_torch.parallel.mesh import chain_shards, concat, local_count
@@ -135,9 +135,16 @@ def step_layout(accept_draws: int) -> tuple[int, int]:
 def tracks_off(scene: Scene, cfg: SamplerConfig) -> bool:
     """Whether the off-limits term enters the loop's totals: FIXED mode with
     a nonzero weight (PARITY scores it only in the final report). The
-    weight is read back once per unchanged scene (its memo)."""
+    weight is read once per unchanged scene (its memo), from the host twin
+    where the scene has one, else back from its device."""
     return cfg.mode is not CostMode.PARITY and scene.memo(
-        "w_offlimits != 0", lambda: float(scene.w_offlimits) != 0.0)
+        "w_offlimits != 0", lambda: float(_host_or_card(scene, "w_offlimits")) != 0.0)
+
+
+def _host_or_card(scene: Scene, field: str):
+    """A field of the scene's host twin where it has one, else its tensor."""
+    h = host_twin(scene)
+    return getattr(scene, field) if h is None else h[field]
 
 
 def off_slab_width(n: int) -> int:
@@ -195,19 +202,25 @@ pack_scene.packs = 0
 
 
 def _pack(scene: Scene, cfg: SamplerConfig) -> PackedScene:
-    """:func:`pack_scene`'s packing, made afresh."""
+    """:func:`pack_scene`'s packing, made afresh from the scene's host twin
+    (:func:`host_twin`: a scene built from a spec, unwritten since) or, for
+    any other scene, from its tensors read back; the packed tensors go to
+    the scene's device in one copy (:func:`stage`)."""
     dev = scene.device
     n0 = scene.n_pad_objs
+    h = host_twin(scene)
+    if h is None:
+        h = scene.to_numpy()
 
-    def npf(t):
-        return t.detach().cpu().numpy().astype(np.float32)
+    def npf(a):
+        return np.asarray(a).astype(np.float32)
 
-    def npi(t):
-        return t.detach().cpu().numpy().astype(np.int32)
+    def npi(a):
+        return np.asarray(a).astype(np.int32)
 
-    mask = npf(scene.obj_mask)
-    ok = mask * (np.float32(1.0) - npf(scene.frozen))
-    sizes = npf(scene.sizes)
+    mask = npf(h["obj_mask"])
+    ok = mask * (np.float32(1.0) - npf(h["frozen"]))
+    sizes = npf(h["sizes"])
     planes = np.zeros((N_PLANES, n0), np.float32)
     planes[P_MASK] = mask
     planes[P_OK] = ok
@@ -215,28 +228,30 @@ def _pack(scene: Scene, cfg: SamplerConfig) -> PackedScene:
     planes[P_AREA] = sizes[:, 0] * sizes[:, 1]
     for p, name in ((P_OV0X, "v0x"), (P_OTAILX, "tail_min_x"), (P_OMINX, "min_x"),
                     (P_OMINY, "min_y"), (P_OMAXX, "max_x"), (P_OMAXY, "max_y")):
-        planes[p] = npf(getattr(scene.off_rects, name))
+        planes[p] = npf(h["off_rects"][name])
     unf = np.flatnonzero(ok > 0).astype(np.int32)
 
-    mnx, mny, mxx, mxy = (float(v) for v in scene.surface_bounds())
+    # Scene.surface_bounds(): each bound plus a zero, so -0.0 comes out +0.0
+    mnx, mny, mxx, mxy = (float(h["surface"][k][0]) + 0.0
+                          for k in ("min_x", "min_y", "max_x", "max_y"))
     sigx = (mxx - mnx) / 16.0
     sigy = (mxy - mny) / 16.0
     if cfg.sigma_xy_override > 0:
         sigx = sigy = cfg.sigma_xy_override
-    frot = np.float32(float(scene.focal_rot))
-    denom = _block_sum(torch.as_tensor(planes[P_AREA] * mask)[None])[0].item()
+    frot = np.float32(float(h["focal_rot"]))
+    denom = float(_block_sum_host(planes[P_AREA] * mask))
     s = np.zeros(N_SCALARS, np.float32)
-    s[S_WPW] = float(scene.w_pairwise)
-    s[S_WVB] = float(scene.w_visual_balance)
-    s[S_WFP] = float(scene.w_focal)
-    s[S_WSY] = float(scene.w_symmetry)
-    s[S_WCL] = float(scene.w_clearance)
-    s[S_WOL] = float(scene.w_offlimits)
-    s[S_WSA] = float(scene.w_surface_area)
-    s[S_CX2] = float(scene.centroid[0]) / 2.0
-    s[S_CY2] = float(scene.centroid[1]) / 2.0
-    s[S_FX] = float(scene.focal[0])
-    s[S_FY] = float(scene.focal[1])
+    s[S_WPW] = float(h["w_pairwise"])
+    s[S_WVB] = float(h["w_visual_balance"])
+    s[S_WFP] = float(h["w_focal"])
+    s[S_WSY] = float(h["w_symmetry"])
+    s[S_WCL] = float(h["w_clearance"])
+    s[S_WOL] = float(h["w_offlimits"])
+    s[S_WSA] = float(h["w_surface_area"])
+    s[S_CX2] = float(h["centroid"][0]) / 2.0
+    s[S_CY2] = float(h["centroid"][1]) / 2.0
+    s[S_FX] = float(h["focal"][0])
+    s[S_FY] = float(h["focal"][1])
     s[S_FROT] = frot
     s[S_UX] = np.cos(frot)
     s[S_UY] = np.sin(frot)
@@ -251,40 +266,38 @@ def _pack(scene: Scene, cfg: SamplerConfig) -> PackedScene:
     s[S_DENOM] = denom if denom > 0 else 1.0
 
     parity = cfg.mode is CostMode.PARITY
-    clr_real = np.flatnonzero(npf(scene.clr_mask) > 0)
-    clr_src = npi(scene.clr_src)[clr_real]
+    clr_real = np.flatnonzero(npf(h["clr_mask"]) > 0)
+    clr_src = npi(h["clr_src"])[clr_real]
     # Kernel.cu:456 quirk: PARITY surface area anchors clearance i to object i
     anchor = np.minimum(clr_real, n0 - 1).astype(np.int32) if parity else clr_src
     clr_p = np.stack(
-        [npf(getattr(scene.clr_rects, f))[clr_real]
+        [npf(h["clr_rects"][f])[clr_real]
          for f in ("v0x", "tail_min_x", "min_x", "min_y", "max_x", "max_y")],
         axis=1,
     ).reshape(-1, 6)
 
-    rel_idx = np.stack([npi(scene.rel_src), npi(scene.rel_tgt)], 1)
-    ang_idx = np.stack([npi(scene.ang_src), npi(scene.ang_tgt)], 1)
+    rel_idx = np.stack([npi(h["rel_src"]), npi(h["rel_tgt"])], 1)
+    ang_idx = np.stack([npi(h["ang_src"]), npi(h["ang_tgt"])], 1)
     clr_idx = np.stack([clr_src, anchor], 1).reshape(-1, 2)
     # the kernel loads pose lanes at these indices unchecked
     for name, idx in (("relationship", rel_idx), ("angle", ang_idx), ("clearance", clr_idx)):
         if idx.size and (idx.min() < 0 or idx.max() >= n0):
             raise ValueError(f"{name} object index out of range [0, {n0}): {idx.tolist()}")
 
-    def ti(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
+    def i32(a):
+        return np.ascontiguousarray(a, np.int32)
 
-    def tf(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+    def f32(a):
+        return np.ascontiguousarray(a, np.float32)
 
+    tensors = stage([
+        f32(planes), i32(unf if unf.size else np.zeros(1, np.int32)), f32(s),
+        i32(rel_idx), f32(np.stack([npf(h["rel_lo"]), npf(h["rel_hi"]), npf(h["rel_mask"])], 1)),
+        i32(ang_idx), f32(np.stack([npf(h["ang_min"]), npf(h["ang_max"]), npf(h["ang_mask"])], 1)),
+        i32(clr_idx), f32(clr_p),
+    ], dev)
     return PackedScene(
-        planes=tf(planes),
-        unf_idx=ti(unf if unf.size else np.zeros(1, np.int32)),
-        scalars=tf(s),
-        rel_idx=ti(rel_idx),
-        rel_p=tf(np.stack([npf(scene.rel_lo), npf(scene.rel_hi), npf(scene.rel_mask)], 1)),
-        ang_idx=ti(ang_idx),
-        ang_p=tf(np.stack([npf(scene.ang_min), npf(scene.ang_max), npf(scene.ang_mask)], 1)),
-        clr_idx=ti(clr_idx),
-        clr_p=tf(clr_p),
+        *tensors,
         parity=parity,
         track_off=tracks_off(scene, cfg),
         adapt=cfg.adapt,
@@ -330,6 +343,22 @@ def _block_sum(v: Tensor) -> Tensor:
         acc = acc[:, :s] + acc[:, s:2 * s]
         s //= 2
     return acc[:, 0]
+
+
+def _block_sum_host(v: np.ndarray) -> np.float32:
+    """:func:`_block_sum` of one f32 row ``[N]`` in numpy: the same float32
+    additions in the same order, so the same bits, without a torch op."""
+    n = v.shape[0]
+    k = -(-n // THREADS)
+    v = np.concatenate([v, np.zeros(k * THREADS - n, np.float32)])
+    acc = np.zeros(THREADS, np.float32)
+    for i in range(k):
+        acc = acc + v[i * THREADS:(i + 1) * THREADS]
+    s = THREADS // 2
+    while s:
+        acc = acc[:s] + acc[s:2 * s]
+        s //= 2
+    return acc[0]
 
 
 def atan2_poly(y: Tensor, x: Tensor) -> Tensor:

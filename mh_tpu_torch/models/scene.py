@@ -17,6 +17,11 @@ they are (:meth:`Scene.memo`): its copy on each other device and, on
 each device, the fused kernel's packed inputs and the counts read back to
 the host, so a caller that passes one scene call after call reads and
 uploads it once per device.
+
+``SceneSpec.build`` forms every field in numpy and sends them to the device
+in one copy (:func:`stage`); the scene keeps those host arrays in its memo
+(:func:`host_twin`), so what would read its fields back reads them there
+instead while none has been written.
 """
 
 from __future__ import annotations
@@ -67,12 +72,17 @@ def rects_from_vertices(
     vertices = np.asarray(vertices, dtype=np.float64)
     idx = np.asarray(start_indices, dtype=np.int64)
     quads = np.stack([vertices[idx + k] for k in range(4)], axis=1)  # [M,4,>=2]
+    return RectSet(**{k: torch.as_tensor(a, device=device) for k, a in _quad_arrays(quads).items()})
+
+
+def _quad_arrays(quads: np.ndarray) -> dict:
+    """The six f32[M] fields of the rects of f64 ``quads`` [M, 4, >=2]."""
     xs, ys = quads[..., 0], quads[..., 1]
 
     def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        return np.array(a, np.float32)
 
-    return RectSet(
+    return dict(
         v0x=f32(xs[:, 0]),
         tail_min_x=f32(xs[:, 1:].min(axis=1)),
         min_x=f32(xs.min(axis=1)),
@@ -82,8 +92,41 @@ def rects_from_vertices(
     )
 
 
-def _pad_rects(r: RectSet, n: int) -> RectSet:
-    return _map_tensors(r, lambda a: torch.nn.functional.pad(a, (0, n - a.shape[0])))
+STAGE_ALIGN = 256  # bytes: each staged array starts where a card allocation would
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.int32): torch.int32,
+                 np.dtype(np.bool_): torch.bool}
+
+
+def stage(arrays: Sequence[np.ndarray], device=None) -> list:
+    """``arrays`` (f32, i32 or bool) as tensors on ``device``, sent in one copy.
+
+    Each array's bytes go to an aligned offset of one host buffer, page-locked
+    from PyTorch's caching host allocator where ``device`` is a card, which
+    goes to the device in one non-blocking copy on its current stream (the
+    allocator keeps the block until the copy is done). Each tensor is a view
+    of its own byte range of the one device buffer, with its array's dtype
+    and shape; so the tensors share a version counter, and an in-place write
+    to one bumps every one's. On the CPU the host buffer is that buffer.
+    Nothing waits on the card.
+    """
+    device = torch.device("cpu" if device is None else device)
+    parts, end = [], 0
+    for a in arrays:
+        c = np.ascontiguousarray(a)  # at least 1-d: a's own shape is kept apart
+        parts.append((end, c.reshape(-1).view(np.uint8), a.shape,
+                      [st // c.itemsize for st in c.strides[:a.ndim]], _TORCH_DTYPES[c.dtype]))
+        end += -(-c.nbytes // STAGE_ALIGN) * STAGE_ALIGN
+    host = torch.empty(end, dtype=torch.uint8, pin_memory=device.type == "cuda")
+    raw = host.numpy()
+    for o, b, _, _, _ in parts:
+        raw[o:o + b.size] = b
+    buf = host if device.type == "cpu" else host.to(device, non_blocking=True)
+    typed, out = {}, []
+    for o, b, shape, strides, dtype in parts:
+        if dtype not in typed:
+            typed[dtype] = buf.view(dtype)
+        out.append(typed[dtype].as_strided(shape, strides, o // dtype.itemsize))
+    return out
 
 
 def _tensor_leaves(obj) -> list:
@@ -334,6 +377,16 @@ class SceneSpec:
         pad_clearances: int | None = None,
         device=None,
     ) -> Scene:
+        """The padded :class:`Scene` on ``device``: every field is made in
+        host memory, then all go to the device in one copy (:func:`stage`),
+        each a view of its part of one buffer there. The scene keeps the
+        host arrays in its memo (:func:`host_twin`), so what reads them
+        back finds them on the host while no field has been written."""
+        return _staged_scene(self._host_fields(pad_objs, pad_rels, pad_clearances), device)[0]
+
+    def _host_fields(self, pad_objs, pad_rels, pad_clearances) -> dict:
+        """Every field of the built scene as a new numpy array, keyed as
+        :meth:`Scene.to_numpy` keys them (none is one of the spec's own)."""
         n = self.n_objs
         pn = pad_objs or max(n, 1)
         r = len(self.relationships)
@@ -344,66 +397,100 @@ class SceneSpec:
         if pn < n or pr < max(r, a) or pc < c:
             raise ValueError("padding smaller than actual counts")
 
-        def quad_rects(quads: np.ndarray) -> RectSet:
-            quads = np.asarray(quads, dtype=np.float64).reshape(-1, 4, 2)
-            starts = np.arange(quads.shape[0]) * 4
-            return rects_from_vertices(quads.reshape(-1, 2), starts, device)
-
-        def t(a, dtype=np.float32):
-            return torch.as_tensor(np.asarray(a, dtype), device=device)
-
-        def padf(vals, width, dtype=np.float32):
+        def pad(vals, width, dtype=np.float32):
             out = np.zeros(width, dtype=dtype)
             out[: len(vals)] = vals
-            return t(out, dtype)
+            return out
+
+        def f64_quads(quads) -> np.ndarray:
+            return np.asarray(quads, dtype=np.float64).reshape(-1, 4, 2)
+
+        def f32(v):
+            return np.array(v, np.float32)
 
         rel = np.asarray([list(x) for x in self.relationships], np.float64).reshape(r, 4)
         ang = np.asarray(
             [list(x) for x in self.angle_relationships], np.float64
         ).reshape(a, 4)
-        clr_quads = (
-            np.stack([np.asarray(q, np.float64) for q, _ in self.clearances])
-            if c
-            else np.zeros((1, 4, 2))
-        )
+        clr_quads = [q for q, _ in self.clearances] if c else np.zeros((1, 4, 2))
         clr_src = np.asarray([s for _, s in self.clearances], np.int64)
+        # the off-limits, surface and clearance rects in one pass
+        quads = [f64_quads(q) for q in (self.offlimit_quads, self.surface_quad, clr_quads)]
+        ends = np.cumsum([len(q) for q in quads])
+        rects = [{k: v[lo:hi] for k, v in _quad_arrays(np.concatenate(quads)).items()}
+                 for lo, hi in zip([0, *ends[:-1]], ends)]
+        sizes = np.zeros((pn, 2), np.float32)
+        sizes[:n] = np.asarray(self.sizes, np.float32)
 
-        return Scene(
-            obj_mask=padf(np.ones(n), pn),
-            frozen=padf(np.asarray(self.frozen, bool), pn, dtype=bool),
-            sizes=t(np.pad(np.asarray(self.sizes, np.float32), ((0, pn - n), (0, 0)))),
-            off_rects=_pad_rects(quad_rects(self.offlimit_quads), pn),
-            surface=quad_rects(np.asarray(self.surface_quad).reshape(1, 4, 2)),
-            centroid=t(self.centroid),
-            focal=t(self.focal),
-            focal_rot=t(self.focal_rot),
-            w_pairwise=t(self.w_pairwise),
-            w_visual_balance=t(self.w_visual_balance),
-            w_focal=t(self.w_focal),
-            w_symmetry=t(self.w_symmetry),
-            w_clearance=t(self.w_clearance),
-            w_offlimits=t(self.w_offlimits),
-            w_surface_area=t(self.w_surface_area),
-            rel_src=padf(rel[:, 0], pr, np.int32),
-            rel_tgt=padf(rel[:, 1], pr, np.int32),
-            rel_lo=padf(rel[:, 2], pr),
-            rel_hi=padf(rel[:, 3], pr),
-            rel_mask=padf(np.ones(r), pr),
-            ang_src=padf(ang[:, 0], pr, np.int32),
-            ang_tgt=padf(ang[:, 1], pr, np.int32),
-            ang_min=padf(ang[:, 2], pr),
-            ang_max=padf(ang[:, 3], pr),
-            ang_mask=padf(np.ones(a), pr),
-            clr_rects=_pad_rects(quad_rects(clr_quads), pc),
-            clr_src=padf(clr_src, pc, np.int32),
-            clr_mask=padf(np.ones(c), pc),
+        return dict(
+            obj_mask=pad(np.ones(n), pn),
+            frozen=pad(np.asarray(self.frozen, bool), pn, dtype=bool),
+            sizes=sizes,
+            off_rects={k: pad(v, pn) for k, v in rects[0].items()},
+            surface=rects[1],
+            centroid=f32(self.centroid),
+            focal=f32(self.focal),
+            focal_rot=f32(self.focal_rot),
+            w_pairwise=f32(self.w_pairwise),
+            w_visual_balance=f32(self.w_visual_balance),
+            w_focal=f32(self.w_focal),
+            w_symmetry=f32(self.w_symmetry),
+            w_clearance=f32(self.w_clearance),
+            w_offlimits=f32(self.w_offlimits),
+            w_surface_area=f32(self.w_surface_area),
+            rel_src=pad(rel[:, 0], pr, np.int32),
+            rel_tgt=pad(rel[:, 1], pr, np.int32),
+            rel_lo=pad(rel[:, 2], pr),
+            rel_hi=pad(rel[:, 3], pr),
+            rel_mask=pad(np.ones(r), pr),
+            ang_src=pad(ang[:, 0], pr, np.int32),
+            ang_tgt=pad(ang[:, 1], pr, np.int32),
+            ang_min=pad(ang[:, 2], pr),
+            ang_max=pad(ang[:, 3], pr),
+            ang_mask=pad(np.ones(a), pr),
+            clr_rects={k: pad(v, pc) for k, v in rects[2].items()},
+            clr_src=pad(clr_src, pc, np.int32),
+            clr_mask=pad(np.ones(c), pc),
         )
 
     def initial_pose(self, pad_objs: int | None = None, device=None) -> Tensor:
+        return torch.as_tensor(self._pose_array(pad_objs), device=device)
+
+    def _pose_array(self, pad_objs) -> np.ndarray:
         pn = pad_objs or max(self.n_objs, 1)
         pose = np.zeros((pn, 6), np.float32)
         pose[: self.n_objs] = np.asarray(self.positions, np.float32)
-        return torch.as_tensor(pose, device=device)
+        return pose
+
+
+_HOST_TWIN = "host twin"
+
+
+def build_with_pose(spec: SceneSpec, device=None) -> tuple[Scene, Tensor]:
+    """``(spec.build(device=device), spec.initial_pose(device=device))``,
+    both sent to the device in one copy."""
+    return _staged_scene(spec._host_fields(None, None, None), device, spec._pose_array(None))
+
+
+def _staged_scene(fields: dict, device, *extra: np.ndarray) -> tuple:
+    """The :class:`Scene` of ``fields`` (:meth:`Scene.to_numpy`'s layout) and
+    the tensors of ``extra``, all sent to ``device`` in one copy; the scene
+    keeps ``fields`` as its host twin."""
+    arrays = [a for v in fields.values() for a in (v.values() if isinstance(v, dict) else (v,))]
+    tensors = iter(stage(arrays + list(extra), device))
+    scene = Scene(**{k: RectSet(**{f: next(tensors) for f in v}) if isinstance(v, dict)
+                     else next(tensors) for k, v in fields.items()})
+    scene.memo_put(_HOST_TWIN, fields)
+    return (scene, *tensors)
+
+
+def host_twin(scene: Scene) -> dict | None:
+    """The host arrays a scene built from a :class:`SceneSpec` was sent from
+    (:meth:`Scene.to_numpy`'s layout), while none of its tensors has been
+    written in place since; else None (a scene of a caller's tensors, a copy
+    made by :meth:`Scene.to`, a written scene, inference tensors). Read it,
+    never write it."""
+    return scene.memo_get(_HOST_TWIN)
 
 
 def _unit_quad(w: float, h: float, x0: float = 0.0, y0: float = 0.0) -> np.ndarray:

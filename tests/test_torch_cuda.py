@@ -16,6 +16,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -25,6 +28,7 @@ from mh_tpu_torch.kernels import fused_mh as TF
 from mh_tpu_torch.kernels import pi_kernel as TP
 
 pytestmark = pytest.mark.cuda
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -694,3 +698,84 @@ def test_results_are_read_into_held_pinned_memory(cuda, path):
                             sorted(pinned, key=lambda e: e.time_range.start)):
         assert outer.time_range.start <= inner.time_range.start <= inner.time_range.end \
             <= outer.time_range.end
+
+
+def spec_call_cfg(mode: str) -> mh_tpu_torch.SamplerConfig:
+    """67 chains: one card on any host (no host's cards divide them)."""
+    return mh_tpu_torch.SamplerConfig(iterations=100, n_chains=67,
+                                      mode=mh_tpu_torch.CostMode[mode])
+
+
+@pytest.mark.parametrize("mode,w_off", [("PARITY", 0.0), ("FIXED", -1.5)])
+def test_a_spec_is_built_and_packed_with_no_sync(cuda, mode, w_off):
+    """A spec's scene (with its start pose, in one copy) and its packing are
+    made on the host and sent without a call that waits on the card; the
+    packing is bitwise that of the same scene's tensors read back."""
+    from mh_tpu_torch import api
+    from mh_tpu_torch.models.scene import build_with_pose, scene_from_numpy
+
+    spec = dataclasses.replace(mh_tpu_torch.demo_scene(32), w_offlimits=w_off)
+    cfg = spec_call_cfg(mode)
+    TF.pack_scene(build_with_pose(spec, cuda)[0], cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scene = spec.build(device=cuda)
+        pk = TF.pack_scene(scene, cfg)
+        with_pose, pose0 = build_with_pose(spec, cuda)
+        TF.pack_scene(with_pose, cfg)
+        counts = api._mask_counts(with_pose)
+        track = TF.tracks_off(with_pose, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert counts == (32, 2) and track == (mode == "FIXED")
+    assert pose0.device == scene.device and pose0.shape == (32, 6)
+    want = TF._pack(scene_from_numpy(spec.build().to_numpy(), device=cuda), cfg)
+    for f in dataclasses.fields(TF.PackedScene):
+        g, w = getattr(pk, f.name), getattr(want, f.name)
+        if isinstance(w, torch.Tensor):
+            assert g.dtype == w.dtype and torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+        else:
+            assert g == w, f.name
+
+
+def test_a_spec_call_makes_two_host_to_card_copies(cuda):
+    """The scene with its start pose, then the packing: two copies to the
+    card in a call that passes a spec. Profiled in a process of its own: in
+    a process that has run other profiled tests the card's activity may
+    not be recorded."""
+    code = (
+        "import json, torch, mh_tpu_torch\n"
+        "spec = mh_tpu_torch.demo_scene(32)\n"
+        "cfg = mh_tpu_torch.SamplerConfig(iterations=100, n_chains=67)\n"
+        "mh_tpu_torch.suggest_layouts(spec, cfg, 1)\n"
+        "acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]\n"
+        "with torch.profiler.profile(activities=acts) as prof:\n"
+        "    mh_tpu_torch.suggest_layouts(spec, cfg, 2)\n"
+        "print(json.dumps([e.name for e in prof.events()\n"
+        "                  if e.device_type == torch.autograd.DeviceType.CUDA]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, check=True)
+    on_card = json.loads(out.stdout.strip().splitlines()[-1])
+    assert any("fused_mh" in n for n in on_card), on_card
+    assert 1 <= len([n for n in on_card if n.startswith("Memcpy HtoD")]) <= 2, on_card
+
+
+@pytest.mark.parametrize("mode,w_off", [("PARITY", 0.0), ("FIXED", -1.5)])
+def test_a_spec_call_equals_the_built_scene_path(cuda, mode, w_off):
+    """A call on a spec gives the bits of a call on the built scene with its
+    start pose, and of one on a scene of the same tensors (no host twin:
+    packed from its tensors read back)."""
+    from mh_tpu_torch.models.scene import scene_from_numpy
+
+    spec = dataclasses.replace(mh_tpu_torch.demo_scene(32), w_offlimits=w_off)
+    cfg = spec_call_cfg(mode)
+    pose0 = spec.initial_pose(device=cuda)
+    got = mh_tpu_torch.suggest_layouts(spec, cfg, 5)
+    built = mh_tpu_torch.suggest_layouts(spec.build(device=cuda), cfg, 5, pose0)
+    read = mh_tpu_torch.suggest_layouts(
+        scene_from_numpy(spec.build().to_numpy(), device=cuda), cfg, 5, pose0)
+    assert (got.accept_rate > 0).any()
+    for field in ("points", "costs", "accept_rate", "step_scale"):
+        assert getattr(got, field).tobytes() == getattr(built, field).tobytes(), field
+        assert getattr(got, field).tobytes() == getattr(read, field).tobytes(), field
