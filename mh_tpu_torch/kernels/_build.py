@@ -38,6 +38,8 @@ _SIGNATURES = {
     # n_chains, seed, iterations, first_chain, parity, track_off, adapt, moves,
     # accept_draws, incremental, off_width, off_incremental, stream
     "mh_fused_run": [_c_void_p] * 12 + [_c_int] * 5 + [_c_uint32] + [_c_int] * 10 + [_c_void_p],
+    # csrc/fused_mh.cu: dynamic shared memory (bytes), out (blocks an SM)
+    "mh_fused_blocks_per_sm": [_c_int, ctypes.POINTER(_c_int)],
     # csrc/fused_mh.cu: out, seed, counter, first_chain, n_chains, stream
     "mh_uniform_block": [_c_void_p, _c_uint32, _c_uint32, _c_int, _c_int, _c_void_p],
     # csrc/pi_kernel.cu: partial, n_blocks, seed, total, stream

@@ -1417,6 +1417,20 @@ int mh_fused_run(const float* pose_in, float* pose_out, float* stats, const floa
   return static_cast<int>(cudaGetLastError());
 }
 
+// Writes to *out the blocks of fused_mh_kernel that one SM of the current
+// device holds at once with `smem` bytes of dynamic shared memory a block
+// (the occupancy calculator, after the shared-memory attribute that
+// mh_fused_run sets for such a launch). Returns the cudaError_t.
+int mh_fused_blocks_per_sm(int smem, int* out) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_mh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fused_mh_kernel, THREADS, smem));
+}
+
 // Writes the uniforms of one draw counter: out f32[n_chains, 128].
 int mh_uniform_block(float* out, uint32_t seed, uint32_t counter, int first_chain,
                      int n_chains, void* stream) {

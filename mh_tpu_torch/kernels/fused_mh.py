@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -849,7 +850,9 @@ def fused_mh_cuda(pk: PackedScene, pose0: Tensor, seed: int, iterations: int,
     """Launch ``csrc/fused_mh.cu`` on ``pose0`` f32[C, N, 6] (a CUDA tensor).
 
     Same contract as :func:`fused_chains_reference`. Raises on anything the
-    kernel does not take and on a failed launch.
+    kernel does not take and on a failed launch. Opens one range of no
+    work, ``mh.blocks_per_sm.<k>``, naming the kernel's resident blocks an
+    SM at this launch's shared memory (:func:`blocks_per_sm`).
     """
     n_chains, n = pose0.shape[0], pose0.shape[1]
     if pose0.device.type != "cuda" or pose0.dtype != torch.float32:
@@ -866,6 +869,8 @@ def fused_mh_cuda(pk: PackedScene, pose0: Tensor, seed: int, iterations: int,
         raise ValueError(f"iterations={iterations} / chains {first_chain} + {n_chains} "
                          "out of range")
     lib = _build.load()
+    with span(f"mh.blocks_per_sm.{blocks_per_sm(smem, pose0.device.index)}"):
+        pass
     pose_in = pose0.contiguous()
     pose_out = torch.empty_like(pose_in)
     stats = torch.empty(n_chains, N_STATS, dtype=torch.float32, device=pose0.device)
@@ -893,6 +898,19 @@ def fused_mh_cuda(pk: PackedScene, pose0: Tensor, seed: int, iterations: int,
 
 
 fused_mh_cuda.launches = 0
+
+
+@functools.cache
+def blocks_per_sm(smem: int, device: int) -> int:
+    """Blocks of the fused kernel that one SM of CUDA card ``device`` holds
+    at once with ``smem`` bytes of dynamic shared memory a block: CUDA's
+    occupancy calculator, asked once per card and size."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _build.load().mh_fused_blocks_per_sm(smem, ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"occupancy query failed: {_build.error_string(err)}")
+    return out.value
 
 
 def decode_stats(stats: Tensor):

@@ -27,6 +27,10 @@ time, which a trace shows on the clock of the card's kernels and copies
   work opened only in a weighted FIXED launch (the off-limits term in the
   loop): ``mh.off_state`` where the kernel keeps the off-limits slab state,
   ``mh.off_rows`` where it sums the slab rows from scratch;
+- ``mh.blocks_per_sm.<k>``: inside ``mh.launch``, a range of no work
+  opened once a launch of the CUDA kernel (none on the CPU): ``k`` blocks
+  of the launch fit one SM at its shared memory, as CUDA's occupancy
+  calculator gives it (asked once per card and shared-memory size);
 - ``mh.split``: the shared start expanded and each shard's slice moved to
   its card (a mesh, or every card);
 - ``mh.gather``: the shards' outputs joined on the first shard's card;

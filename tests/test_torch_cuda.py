@@ -13,6 +13,7 @@ kernel counts exactly the plain version's hits.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 import mh_tpu_torch
+from mh_tpu_torch.kernels import _build
 from mh_tpu_torch.kernels import fused_mh as TF
 from mh_tpu_torch.kernels import pi_kernel as TP
 
@@ -650,6 +652,42 @@ def test_launch_names_its_off_limits_path_and_reads_nothing_back(cuda, n, mode, 
     assert [e.name for e in off] == want
     launch = next(e for e in prof.events() if e.name == "mh.launch")
     for e in off:
+        assert launch.time_range.start <= e.time_range.start <= e.time_range.end \
+            <= launch.time_range.end
+
+
+def test_guideline_scene_matches_reference_and_names_its_blocks_per_sm(cuda):
+    """The benchmark's ``scene100_guidelines`` scene (100 objects, a
+    clearance on each, 50 + 50 distance and angle rows): the kernel gives
+    the plain version's bits in PARITY, and each launch opens one
+    ``mh.blocks_per_sm.<k>`` inside ``mh.launch`` with the k that CUDA's
+    occupancy calculator gives at its shared memory, asked once."""
+    from portbench.entries.suggest_layouts import scene_spec
+
+    config = json.loads((ROOT / "portbench" / "configs" / "scene100_guidelines.json").read_text())
+    spec = scene_spec(config["scene"])
+    pk = TF.pack_scene(spec.build(device=cuda), mh_tpu_torch.SamplerConfig())
+    assert (pk.n, pk.n_clr, pk.rel_idx.shape[0], pk.ang_idx.shape[0]) == (100, 100, 50, 50)
+    pose0 = spec.initial_pose(device=cuda).expand(64, 100, 6).contiguous()
+    got = TF.fused_mh_cuda(pk, pose0, 3, 50)
+    want = TF.fused_chains_reference(pk, pose0, 3, 50)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert (got[2] > 0).sum() >= 32
+    smem = TF.smem_bytes(100, 100, 1, False)
+    k = ctypes.c_int(0)
+    assert _build.load().mh_fused_blocks_per_sm(smem, ctypes.byref(k)) == 0 and k.value >= 1
+    misses = TF.blocks_per_sm.cache_info().misses
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        TF._run(pk, pose0, 4, 10, 0)
+        TF._run(pk, pose0, 5, 10, 0)
+    torch.cuda.synchronize()
+    assert TF.blocks_per_sm.cache_info().misses == misses
+    ranges = [e for e in prof.events() if e.name.startswith("mh.blocks_per_sm.")]
+    assert [e.name for e in ranges] == [f"mh.blocks_per_sm.{k.value}"] * 2
+    launches = [e for e in prof.events() if e.name == "mh.launch"]
+    for e, launch in zip(ranges, launches):
         assert launch.time_range.start <= e.time_range.start <= e.time_range.end \
             <= launch.time_range.end
 
