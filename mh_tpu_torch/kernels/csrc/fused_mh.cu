@@ -69,18 +69,26 @@
 //    tree per reduced row and thread 0's serial work. Each warp now reduces
 //    whole rows in the tree's order (lane l forms the first two levels,
 //    (p[l] + p[l+64]) + (p[l+32] + p[l+96]), and __shfl_down_sync the other
-//    five). A single-move step has 4 barriers: after the move is applied,
-//    after the per-lane terms (which list the rows to rescan), after the
-//    rescans and after the reduction. Warp 0 alone then scores, accepts and
+//    five). A clearance row's partials p[l + 32 h] are formed by lane l of
+//    the warp that reduces it, in registers, in the order thread l + 32 h
+//    would sum them, so they take no shared memory (with 128 words of
+//    partials a row, 100 clearances at 100 objects left 3 blocks an SM).
+//    A warp forms two clearance rows at a time, each object's box once
+//    for both.
+//    A single-move step has 4 barriers: after the move is applied, after
+//    the per-lane terms (which list the rows to rescan), after the rescans
+//    and after the reduction. Warp 0 alone then scores, accepts and
 //    commits; warp 1 draws and decodes the next move during the reduction;
 //    the other warps go straight on to the next step.
 // 3. Per-object work for objects that did not move. The focal term (sinf,
 //    cosf, sqrtf, a division) is cached per object and recomputed for
-//    moved lanes only; balance, outside area and clearance rows are a few
-//    flops, summed by each thread over its own objects into its strided
-//    partials (one box per object for every row). The relationship,
-//    angle and clearance-surface sums (lane 0 of warps 0, 1 and 2, each in
-//    its order) are reused while none of their objects moved.
+//    moved lanes only; balance and outside area are a few flops, summed by
+//    each thread over its own objects into its strided partials, and each
+//    clearance row by a warp (point 2). The relationship, angle and
+//    clearance-surface sums (lane 0 of warps 0, 1 and 2, each in its
+//    order) are reused while none of their objects moved; the warps take
+//    the clearance rows two at a time from a shared counter once their own
+//    sum is done, so the warp with the longest sum takes the fewest.
 //
 // 4. Instruction fetch. The step's code did not fit the SM's instruction
 //    caches: with 8 chains to an SM each at its own phase, every phase
@@ -125,6 +133,9 @@ constexpr int PROPOSAL_LANES = 8;  // uniforms one move consumes
 constexpr int DRAW_LANES = 128;    // uniforms per (chain, draw counter)
 constexpr int MAX_ACCEPT_DRAWS = DRAW_LANES - PROPOSAL_LANES;
 constexpr int N_STATS = 10;
+// clearance rows a warp forms at a time, each object's box once for them
+// (four need more than the 64 registers a thread has at 8 blocks an SM)
+constexpr int CLR_TAKE = 2;
 
 // -DMH_PHASE_PROFILE builds a library whose step loop adds, per warp, the
 // clock cycles its lane 0 spends in each phase of a single-move step (the
@@ -224,6 +235,7 @@ struct Shared {
   float pw, pwa, sa_clr;  // entity terms of the last evaluated pose
   float pw_c, pwa_c, sa_clr_c;  // and of the current pose
   int n_moved, n_rescan;  // entries of the moved-lane and rescan lists
+  int next_clr;           // the next clearance row a warp takes
   // off-limits state, by step parity: the star row slots (touched slabs)
   // and column slots (lanes whose box moved) listed; this step's last row
   // that a touched slab changes; which row-sum buffer is current
@@ -237,8 +249,10 @@ struct Shared {
 // MASK[N], FPc / FPs[N] focal term per object (current / star), Bc / Bs[N]
 // best symmetry match per reflection, Ac / As[N] argbest, MV[N] moved-lane
 // flags, LIST[N] rows to rescan, MVL[N] moved lanes; then, for the K =
-// R_CLR0 + n_clr reduced rows, RS[K] their sums and RED[K x THREADS] their
-// strided partials, a compound step's move table [N_MOVE_ROWS x THREADS]
+// R_CLR0 + n_clr reduced rows, RS[K] their sums, RED[R_CLR0 x THREADS] the
+// strided partials of the rows before the clearances (a clearance row's
+// partials stay in its warp's registers), a compound step's move table
+// [N_MOVE_ROWS x THREADS]
 // and, with track_off, the off-limits state: OC[S x N] the cells (current;
 // without off_incremental, the star pose's, all recomputed each step) and,
 // with off_incremental and T = off_slots: OX[T x N] the star rows of the
@@ -928,20 +942,19 @@ __device__ void entity_terms(const Params& p, Shared& sh, bool all) {
   }
 }
 
-// Each thread's strided partials of the reduced rows at the star pose,
-// all but the symmetry row: RED[k][t] sums objects t, t + THREADS, ... in
-// that order from 0, as the plain version's _block_sum does. The off-limits
-// row only with `full_off` (the final report's unslabbed rows; the slab
-// rows come from off_rows).
+// Each thread's strided partials of the reduced rows at the star pose
+// before the clearance rows, all but the symmetry row: RED[k][t] sums
+// objects t, t + THREADS, ... in that order from 0, as the plain version's
+// _block_sum does. The off-limits row only with `full_off` (the final
+// report's unslabbed rows; the slab rows come from off_rows).
 __device__ void lane_partials(const Params& p, bool full_off) {
-  const int N = p.n, tid = threadIdx.x, K = R_CLR0 + p.n_clr;
+  const int N = p.n, tid = threadIdx.x;
   const float* S = sS(N);
   const float* MASK = sMASK(N);
   const float* pl = p.planes;
   const bool parity = p.parity;
-  float* red = sRED(N, K) + tid;
-  NO_UNROLL
-  for (int k = 0; k < K; ++k) red[k * THREADS] = 0.f;
+  float* red = sRED(N, R_CLR0 + p.n_clr) + tid;
+  for (int k = 0; k < R_CLR0; ++k) red[k * THREADS] = 0.f;
   NO_UNROLL
   for (int i = tid; i < N; i += THREADS) {
     const float m = MASK[i], x = S[i], y = S[N + i];
@@ -951,30 +964,78 @@ __device__ void lane_partials(const Params& p, bool full_off) {
     const Box b = obj_box(pl, N, parity, i, x, y);
     red[R_OBJOUT * THREADS] += outside_area(p.sc, b.mnx, b.mny, b.mxx, b.mxy) * m;
     if (full_off) red[R_OFF * THREADS] += off_row(p, S, MASK, i) * m;
-    // clearance rects, anchored at their source objects, against this object
-    for (int c = 0; c < p.n_clr; ++c) {
+  }
+}
+
+// The halving tree over THREADS strided partials, by the calling warp, lane
+// l holding q[h] = p[l + 32 h]: lane l folds the tree's first two levels,
+// (p[l] + p[l+64]) + (p[l+32] + p[l+96]), then shuffles; lane 0 gets the sum.
+__device__ __forceinline__ float warp_tree(const float* q) {
+  float t = (q[0] + q[2]) + (q[1] + q[3]);
+  for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(FULL_MASK, t, o);
+  return t;
+}
+
+// Every clearance row at the star pose -> RS[R_CLR0 + c], by every warp:
+// each warp takes the next CLR_TAKE rows from sh.next_clr (reset to 0
+// before the evaluation, with a barrier between) until none is left, so a
+// warp still in its entity sum takes fewer. For each row, lane l forms the
+// partials of threads l + 32 h, the overlaps of the clearance rect
+// (anchored at its source object) with objects l + 32 h, l + 32 h +
+// THREADS, ... summed in that order from 0, each object's box once for
+// the rows taken together, then folds them as reduce_rows does.
+__device__ void clearance_rows(const Params& p, Shared& sh) {
+  const int N = p.n, lane = threadIdx.x & 31;
+  const float* S = sS(N);
+  const float* MASK = sMASK(N);
+  const bool parity = p.parity;
+  NO_UNROLL
+  for (;;) {
+    int c0 = 0;
+    if (lane == 0) c0 = atomicAdd(&sh.next_clr, CLR_TAKE);
+    c0 = __shfl_sync(FULL_MASK, c0, 0);
+    if (c0 >= p.n_clr) return;
+    Box a[CLR_TAKE];  // past the last row, the last row again (not written)
+    for (int g = 0; g < CLR_TAKE; ++g) {
+      const int c = min(c0 + g, p.n_clr - 1);
       const float* cp = p.clr_p + 6 * c;
       const int src = p.clr_idx[2 * c];
       const float cax = S[src], cay = S[N + src];
-      red[(R_CLR0 + c) * THREADS] +=
-          inter_area(aabb_minx(parity, cp[0], cp[1], cp[2], cax), cp[3] + cay, cp[4] + cax,
-                     cp[5] + cay, b.mnx, b.mny, b.mxx, b.mxy) *
-          m;
+      a[g] = Box{aabb_minx(parity, cp[0], cp[1], cp[2], cax), cp[3] + cay, cp[4] + cax,
+                 cp[5] + cay};
+    }
+    float q[CLR_TAKE][4];
+    for (int h = 0; h < 4; ++h) {
+      float acc[CLR_TAKE];
+      for (int g = 0; g < CLR_TAKE; ++g) acc[g] = 0.f;
+      NO_UNROLL
+      for (int i = lane + 32 * h; i < N; i += THREADS) {
+        const Box b = obj_box(p.planes, N, parity, i, S[i], S[N + i]);
+        const float m = MASK[i];
+        for (int g = 0; g < CLR_TAKE; ++g)
+          acc[g] += inter_area(a[g].mnx, a[g].mny, a[g].mxx, a[g].mxy, b.mnx, b.mny, b.mxx,
+                               b.mxy) *
+                    m;
+      }
+      for (int g = 0; g < CLR_TAKE; ++g) q[g][h] = acc[g];
+    }
+    for (int g = 0; g < CLR_TAKE; ++g) {
+      const float t = warp_tree(q[g]);
+      if (lane == 0 && c0 + g < p.n_clr) sRS(N)[R_CLR0 + c0 + g] = t;
     }
   }
 }
 
-// Every reduced row -> RS, one warp per row, in the order of the halving
-// tree over the THREADS strided partials: lane l folds the tree's first two
-// levels, (p[l] + p[l+64]) + (p[l+32] + p[l+96]), then shuffles. The
+// The reduced rows before the clearance rows -> RS, one warp per row, in
+// the order of the halving tree over the THREADS strided partials. The
 // symmetry row's partials are summed here from the best matches.
 __device__ void reduce_rows(const Params& p, bool with_off) {
-  const int N = p.n, lane = threadIdx.x & 31, K = R_CLR0 + p.n_clr;
-  const float* red = sRED(N, K);
+  const int N = p.n, lane = threadIdx.x & 31;
+  const float* red = sRED(N, R_CLR0 + p.n_clr);
   const float* Bs = sBs(N);
   const float* MASK = sMASK(N);
   NO_UNROLL
-  for (int k = threadIdx.x >> 5; k < K; k += WARPS) {
+  for (int k = threadIdx.x >> 5; k < R_CLR0; k += WARPS) {
     if (k == R_OFF && !with_off) continue;
     float q[4];
     for (int h = 0; h < 4; ++h) {
@@ -987,8 +1048,7 @@ __device__ void reduce_rows(const Params& p, bool with_off) {
         q[h] = red[k * THREADS + lane + 32 * h];
       }
     }
-    float t = (q[0] + q[2]) + (q[1] + q[3]);
-    for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(FULL_MASK, t, o);
+    const float t = warp_tree(q);
     if (lane == 0) sRS(N)[k] = t;
   }
 }
@@ -1040,16 +1100,20 @@ __device__ __forceinline__ float total_of(const Params& p, const Shared& sh, boo
 enum { OFF_NONE, OFF_SLAB, OFF_FULL };
 
 // The full objective of the star pose, every term from scratch (the start
-// and the final report). Every thread calls it; it returns synchronized.
+// and the final report). Every thread calls it, after a barrier; it returns
+// synchronized.
 __device__ float score_all(const Params& p, Shared& sh, int off, float* terms) {
   const int N = p.n;
   const float* S = sS(N);
   const float* MASK = sMASK(N);
+  if (threadIdx.x == 0) sh.next_clr = 0;
   NO_UNROLL
   for (int i = threadIdx.x; i < N; i += THREADS)
     sFPs(N)[i] = focal_term(p.sc, S[i], S[N + i], S[4 * N + i], MASK[i]);
+  __syncthreads();
   lane_partials(p, off == OFF_FULL);
   entity_terms(p, sh, true);
+  clearance_rows(p, sh);
   NO_UNROLL
   for (int i = threadIdx.x >> 5; i < N; i += WARPS) rescan_row(p, i);
   if (off == OFF_SLAB) {
@@ -1078,7 +1142,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_mh_kernel(const Par
   int* MV = sMV(N);
   int* MVL = sMVL(N);
   // compound: N_MOVE_ROWS x THREADS
-  float* mvt = sRED(N, R_CLR0 + p.n_clr) + (R_CLR0 + p.n_clr) * THREADS;
+  float* mvt = sRED(N, R_CLR0 + p.n_clr) + R_CLR0 * THREADS;
   const float* sc = p.sc;
 
   const float* pin = p.pose_in + static_cast<size_t>(chain) * N * 6;
@@ -1145,6 +1209,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_mh_kernel(const Par
     if (!compound) {
       if (tid == 0) {
         sh.n_rescan = 0;
+        sh.next_clr = 0;
         if (p.off_incremental) off_begin(p, sh, t & 1);
         const Move m = scaled(sh.next, p.adapt ? expf(log_scale) : 1.f);
         sh.u_acc = sh.next_u_acc;
@@ -1172,6 +1237,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_mh_kernel(const Par
                                   : mh_uniform(p.seed, gchain, c0, 1);
         if (tid == 0) {
           sh.n_rescan = 0;
+          sh.next_clr = 0;
           if (p.off_incremental) off_begin(p, sh, t & 1);
           sh.u_acc = u_acc;
         }
@@ -1269,6 +1335,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_mh_kernel(const Par
     PHASE(2)
     lane_partials(p, false);
     entity_terms(p, sh, !incremental);
+    clearance_rows(p, sh);
     PHASE(3)
     if (p.off_incremental) off_update(p, sh, t & 1, took);
     PHASE(4)
@@ -1392,10 +1459,11 @@ int mh_fused_run(const float* pose_in, float* pose_out, float* stats, const floa
            ang_idx, ang_p, clr_idx, clr_p, n_rel, n_ang, n_clr, n, n_chains,
            seed, iterations, first_chain, parity, track_off, adapt, moves, accept_draws,
            incremental, off_width, off_slabs, off_incremental, off_slots, {}};
-  // SMEM_WORDS_PER_OBJECT words per object, the reduced rows' sums and
-  // partials, the compound step's move table, then the off-limits state
-  // (sizes < 2^31 words: smem_bytes in fused_mh.py caps n first)
-  p.off.oc = SMEM_WORDS_PER_OBJECT * n + (R_CLR0 + n_clr) * (1 + THREADS) +
+  // SMEM_WORDS_PER_OBJECT words per object, the reduced rows' sums, the
+  // partials of the rows before the clearances, the compound step's move
+  // table, then the off-limits state (sizes < 2^31 words: smem_bytes in
+  // fused_mh.py caps n first)
+  p.off.oc = SMEM_WORDS_PER_OBJECT * n + R_CLR0 + n_clr + R_CLR0 * THREADS +
              (moves > 1 ? N_MOVE_ROWS * THREADS : 0);
   p.off.ox = p.off.oc + S * n;
   p.off.oy = p.off.ox + T * n;

@@ -787,8 +787,10 @@ def smem_bytes(n: int, n_clr: int, moves: int, track_off: bool) -> int:
     """Dynamic shared memory of one block, as csrc/fused_mh.cu lays it out:
     22 words per object (the current and star pose planes, the mask, the
     cached focal term and the symmetry state, current and star, the
-    moved-lane and rescan lists), the 6 + clearances reduced rows' sums and
-    THREADS strided partials each, a compound step's move table and, with
+    moved-lane and rescan lists), the 6 + clearances reduced rows' sums, the
+    THREADS strided partials of each of the 6 rows before the clearance rows
+    (a clearance row's partials stay in the registers of the warp that
+    reduces it), a compound step's move table and, with
     ``track_off`` (:func:`tracks_off`) where the kernel keeps the off-limits
     state (:func:`off_incremental`), the state's words. Without the state
     the rows are summed from scratch and take no shared memory."""
@@ -797,7 +799,7 @@ def smem_bytes(n: int, n_clr: int, moves: int, track_off: bool) -> int:
 
 
 def _base_words(n: int, n_clr: int, moves: int) -> int:
-    return (SMEM_WORDS_PER_OBJECT * n + (6 + n_clr) * (1 + THREADS)
+    return (SMEM_WORDS_PER_OBJECT * n + 6 + n_clr + 6 * THREADS
             + (N_MOVE_ROWS * THREADS if moves > 1 else 0))
 
 
@@ -828,7 +830,7 @@ def off_incremental(moves: int, n: int, n_clr: int) -> bool:
     S slabs on the rows from scratch cost less; so they do where the S N
     cells are no more than 3 THREADS, up to 54 objects (``chip_smoke.py
     --phases kernel_variants`` times both). Past the shared memory a block
-    may take (1,455 objects with 2 clearances, one move) the rows are
+    may take (1,461 objects with 2 clearances, one move) the rows are
     summed from scratch too. Both give the same bits. It implies
     :func:`sym_incremental`, whose moved-lane list the update reads."""
     s = off_slabs(n)

@@ -8,7 +8,7 @@ holds a copy of the pose (O(N)) and the scene, and evaluates its
 are reduced with :func:`~mh_tpu_torch.parallel.mesh.psum` in global shard
 order. The O(N) terms are computed once per chain row in each process
 that holds a shard of it, on its first objs shard's device. This is the
-path past the fused kernel's shared-memory limit (2,582 objects with 2
+path past the fused kernel's shared-memory limit (2,594 objects with 2
 clearances): no shard holds a chain's whole N x N matrices. Results equal
 :func:`~mh_tpu_torch.ops.costs.cost_terms` up to the order of the row sums.
 

@@ -120,7 +120,7 @@ def test_symmetry_state_matches_reference(cuda, case, n, moves, draws):
 def test_off_state_matches_reference(cuda, n, moves, draws, chains):
     """Weighted FIXED: the kernel's off-limits slab sums (the state's
     updated cells, or rows from scratch where 2 M >= S, the cells are few
-    or, past 1,455 objects, the state does not fit in shared memory)
+    or, past 1,461 objects, the state does not fit in shared memory)
     against the plain version's from-scratch slab sums, in every chain,
     hot."""
     spec = mh_tpu_torch.demo_scene(n)
@@ -690,6 +690,75 @@ def test_guideline_scene_matches_reference_and_names_its_blocks_per_sm(cuda):
     for e, launch in zip(ranges, launches):
         assert launch.time_range.start <= e.time_range.start <= e.time_range.end \
             <= launch.time_range.end
+
+
+def guideline_run(cuda, spec, mode, w_off, chains, steps, pose0=None, **kw):
+    """The kernel against the plain version on ``spec``, bitwise in every
+    chain at beta = 1e-3, where most steps commit; the kernel's result."""
+    scene = dataclasses.replace(spec.build(device=cuda),
+                                w_offlimits=torch.tensor(w_off, device=cuda))
+    cfg = mh_tpu_torch.SamplerConfig(mode=mh_tpu_torch.CostMode[mode], beta=1e-3, adapt=True,
+                                     **kw)
+    pk = TF.pack_scene(scene, cfg)
+    assert pk.track_off == (w_off != 0.0)
+    if pose0 is None:
+        pose0 = spec.initial_pose(device=cuda).expand(chains, pk.n, 6).contiguous()
+    got = TF.fused_mh_cuda(pk, pose0, 11, steps)
+    want = TF.fused_chains_reference(pk, pose0, 11, steps)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert (got[2] > 0).sum() >= chains // 2
+    return got
+
+
+@pytest.mark.parametrize("mode,w_off", [("PARITY", 0.0), ("FIXED", -1.5)])
+@pytest.mark.parametrize("n_clr", [150, 151, 1])
+def test_clearance_rows_past_128_objects_match_reference(cuda, n_clr, mode, w_off):
+    """200 objects and 150 clearances: lane l of a clearance row's warp
+    sums objects l + 32 h and l + 32 h + 128 into one partial for h < 2 and
+    one object for h >= 2, as the block's 128 strided partials did; bitwise
+    the plain version in PARITY and in weighted FIXED (slab state kept).
+    With an odd count (151, 1) a warp's last pair holds one row, and the
+    word past the last row's sum, the first of the partials, is not
+    written."""
+    from test_torch_guidelines import guideline_spec
+
+    spec = guideline_spec(200, n_clr)
+    assert TF.off_incremental(1, 200, n_clr)
+    guideline_run(cuda, spec, mode, w_off, 32, 40)
+
+
+@pytest.mark.parametrize("case", ["neg_zero", "compound", "compound_neg_zero"])
+@pytest.mark.parametrize("mode,w_off", [("PARITY", 0.0), ("FIXED", -1.5)])
+def test_guideline_scene_zero_signs_and_compound_steps_match_reference(cuda, case, mode, w_off):
+    """The guideline scene (100 objects, 100 clearances, 50 + 50 rows) from
+    a start pose holding -0.0 (single moves commit through every lane), and
+    with (M, K) = (4, 4) compound steps, whose move table lies after the 6
+    rows' partials: bitwise the plain version, zero signs included."""
+    from test_torch_guidelines import guideline_spec
+
+    spec = guideline_spec(100)
+    moves = 4 if case.startswith("compound") else 1
+    pose0 = spec.initial_pose(device=cuda).expand(64, 100, 6).clone()
+    if case.endswith("neg_zero"):
+        pose0[:, ::2, 2:] = -0.0
+        pose0[:, 0, :2] = -0.0
+    got = guideline_run(cuda, spec, mode, w_off, 64, 40, pose0, n_moves_per_step=moves,
+                        accept_draws=moves)
+    if case.endswith("neg_zero"):
+        assert not torch.signbit(got[0][got[0] == 0]).all()
+
+
+def test_guideline_scene_fits_eight_blocks_an_sm(cuda):
+    """100 objects take 12,296 B a block with 100 clearances (11,904 with
+    2): both fit the 8 blocks an SM that the kernel's 64 registers a thread
+    allow, 1024 chains in one wave on 132 SMs."""
+    for n_clr, smem in ((2, 11_904), (100, 12_296)):
+        assert TF.smem_bytes(100, n_clr, 1, False) == smem
+        k = ctypes.c_int(0)
+        assert _build.load().mh_fused_blocks_per_sm(smem, ctypes.byref(k)) == 0
+        assert k.value == 8, (n_clr, k.value)
 
 
 @pytest.mark.parametrize("path", ["one_card", "every_card"])

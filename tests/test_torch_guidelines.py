@@ -38,15 +38,16 @@ CHAINS, ITERS = 8, 30
 COST_GAP = 1e-4  # portbench/traffic/batch.json's limit
 
 
-def guideline_spec(n: int):
+def guideline_spec(n: int, n_clr: int | None = None):
     """The harness scene at ``n`` objects with the harness's clearance quad
-    i mod 2 anchored at every object i, and its distance row [2, 4] and
-    angle row [0.7854, 1.9635] on each pair (2i, 2i + 1)."""
+    i mod 2 anchored at every object i (at the first ``n_clr``, if given),
+    and its distance row [2, 4] and angle row [0.7854, 1.9635] on each pair
+    (2i, 2i + 1)."""
     return dataclasses.replace(
         mh_tpu_torch.demo_scene(n),
         relationships=[(2 * i, 2 * i + 1, 2.0, 4.0) for i in range(n // 2)],
         angle_relationships=[(2 * i, 2 * i + 1, 0.7854, 1.9635) for i in range(n // 2)],
-        clearances=[(QUADS[i % 2], i) for i in range(n)])
+        clearances=[(QUADS[i % 2], i) for i in range(n if n_clr is None else n_clr)])
 
 
 SPEC = guideline_spec(16)
@@ -96,13 +97,50 @@ def test_torch_engine_breakdown_is_the_objective_at_its_pose(key):
 
 
 def test_shared_memory_and_the_auto_engine_at_many_clearances():
-    """22 N + (6 + C) x 129 words a block: 63,496 B at 100 objects and 100
-    clearances (3 blocks an SM on an H100), so ``auto`` takes the kernel on
-    a card; past 425 clearances at 100 objects a block no longer fits and
+    """22 N + 6 + C + 6 x 128 words a block (a clearance row's partials
+    stay in its warp's registers, so a clearance takes one word, its sum):
+    12,296 B at 100 objects and 100 clearances (the 8 blocks an SM that the
+    kernel's registers allow on an H100), so ``auto`` takes the kernel on a
+    card; past 54,882 clearances at 100 objects a block no longer fits and
     ``auto`` takes ``torch_graph``."""
     cfg = SamplerConfig()
-    assert TF.smem_bytes(100, 100, 1, False) == 4 * (22 * 100 + 106 * 129) == 63_496
-    assert TF.kernel_takes(cfg, 100, 425, False) and not TF.kernel_takes(cfg, 100, 426, False)
+    assert TF.smem_bytes(100, 100, 1, False) == 4 * (22 * 100 + 106 + 6 * 128) == 12_296
+    assert TF.kernel_takes(cfg, 100, 54_882, False)
+    assert not TF.kernel_takes(cfg, 100, 54_883, False)
     assert auto_engine("cuda", cfg, 100, 100, False) == "fused"
-    assert auto_engine("cuda", cfg, 100, 426, False) == "torch_graph"
+    assert auto_engine("cuda", cfg, 100, 54_883, False) == "torch_graph"
     assert auto_engine("cpu", cfg, 100, 100, False) == "torch"
+
+
+def _took_before(cfg, n, n_clr, track_off):
+    """``kernel_takes`` with the layout in which every reduced row, the
+    clearance rows too, kept THREADS strided partials in shared memory:
+    22 N + (6 + C) x 129 words, the move table, and the off-limits state
+    where it then fitted."""
+    moves = cfg.n_moves_per_step
+    table = TF.N_MOVE_ROWS * TF.THREADS if moves > 1 else 0
+    base = 22 * n + (6 + n_clr) * (1 + TF.THREADS) + table
+    state = TF._off_state_words(n, moves)
+    s = TF.off_slabs(n)
+    keeps = (track_off and 2 * moves < s and s * n > 3 * TF.THREADS
+             and 4 * (base + state) <= TF.MAX_SMEM)
+    return (1 <= cfg.accept_draws <= TF.MAX_ACCEPT_DRAWS
+            and 4 * (base + (state if keeps else 0)) <= TF.MAX_SMEM)
+
+
+@pytest.mark.parametrize("track_off", [False, True])
+@pytest.mark.parametrize("moves", [1, 4, 64])
+def test_kernel_takes_every_scene_it_took_with_the_partials_in_shared_memory(moves, track_off):
+    """Taking the clearance rows' partials out of shared memory loses no
+    scene: every (objects, clearances) the kernel took with them it takes
+    now, and the largest of each grid line it took is not its limit now."""
+    cfg = SamplerConfig(n_moves_per_step=moves, accept_draws=moves)
+    took = 0
+    for n in (32, 100, 512, 1455, 1461, 2548, 2582):
+        for n_clr in (2, 100, 425):
+            if _took_before(cfg, n, n_clr, track_off):
+                took += 1
+                assert TF.kernel_takes(cfg, n, n_clr, track_off), (n, n_clr)
+    assert took >= 12
+    assert TF.kernel_takes(cfg, 2548 if moves > 1 else 2582, 102, track_off)
+    assert TF.kernel_takes(cfg, 100, 426, track_off)

@@ -150,13 +150,13 @@ def test_off_slab_width(n, width, slabs):
 @pytest.mark.parametrize("moves,n,incremental", [
     (1, 100, True), (1, 55, True), (1, 54, False), (1, 37, False), (1, 32, False), (6, 100, True),
     (7, 100, False), (4, 32, False), (64, 100, False), (1, 8, False), (1, 2000, False),
-    (1, 512, True), (1, 1100, True), (1, 1455, True), (1, 1456, False), (4, 1280, True),
+    (1, 512, True), (1, 1100, True), (1, 1461, True), (1, 1462, False), (4, 1280, True),
     (4, 1281, False)])
 def test_off_incremental_picks_the_cheaper_scheme(moves, n, incremental):
     """A step's moves touch at most 2 M of the S slabs: from 2 M >= S on,
     each object's row is summed from scratch, and so it is where the S N
     cells are at most three a thread (54 objects: 7 x 54) and where the
-    state does not fit in a block's shared memory (past 1,455 objects with
+    state does not fit in a block's shared memory (past 1,461 objects with
     2 clearances and one move, 1,280 with four). The update reads the
     symmetry state's list of moved lanes, so it implies sym_incremental."""
     assert TF.off_incremental(moves, n, 2) is incremental
@@ -168,30 +168,31 @@ def test_off_incremental_picks_the_cheaper_scheme(moves, n, incremental):
 @pytest.mark.parametrize("n,n_clr", [(32, 2), (100, 2), (256, 2), (512, 2), (100, 5)])
 def test_shared_memory_without_the_off_state_is_unchanged(n, n_clr):
     """PARITY and unweighted FIXED keep the layout without the slab state:
-    22 words an object, the reduced rows and partials, the move table; so
-    does weighted FIXED where it keeps no state (64 moves a step)."""
+    22 words an object, the reduced rows' sums, the strided partials of the
+    6 rows before the clearance rows, the move table; so does weighted FIXED
+    where it keeps no state (64 moves a step)."""
     for moves in (1, 64):
-        want = 4 * (22 * n + (6 + n_clr) * 129 + (6 * 128 if moves > 1 else 0))
+        want = 4 * (22 * n + 6 + n_clr + 6 * 128 + (6 * 128 if moves > 1 else 0))
         assert TF.smem_bytes(n, n_clr, moves, False) == want
     assert TF.smem_bytes(n, n_clr, 64, True) == want
-    assert TF.smem_bytes(100, 2, 1, False) == 12928 and TF.smem_bytes(512, 2, 1, False) == 49184
+    assert TF.smem_bytes(100, 2, 1, False) == 11904 and TF.smem_bytes(512, 2, 1, False) == 48160
 
 
 def test_kernel_takes_weighted_fixed_scenes_up_to_its_limit():
-    """Weighted FIXED keeps the slab state up to 1,455 objects (2
+    """Weighted FIXED keeps the slab state up to 1,461 objects (2
     clearances, one move) and past them sums the slab rows from scratch
-    with no shared memory, so it takes the scenes PARITY takes: 2,582
+    with no shared memory, so it takes the scenes PARITY takes: 2,594
     objects with 2 clearances; auto hands larger ones to the CUDA graph."""
     fixed = mh_tpu_torch.SamplerConfig(mode=mh_tpu_torch.CostMode.FIXED)
-    assert TF.kernel_takes(fixed, 2582, 2, True)
-    assert not TF.kernel_takes(fixed, 2583, 2, True)
-    assert TF.kernel_takes(fixed, 2582, 2, False) and not TF.kernel_takes(fixed, 2583, 2, False)
-    assert auto_engine("cuda", fixed, 2582, 2, True) == "fused"
-    assert auto_engine("cuda", fixed, 2583, 2, True) == "torch_graph"
-    for n in (100, 512, 1024, 1025, 1455, 1456):
+    assert TF.kernel_takes(fixed, 2594, 2, True)
+    assert not TF.kernel_takes(fixed, 2595, 2, True)
+    assert TF.kernel_takes(fixed, 2594, 2, False) and not TF.kernel_takes(fixed, 2595, 2, False)
+    assert auto_engine("cuda", fixed, 2594, 2, True) == "fused"
+    assert auto_engine("cuda", fixed, 2595, 2, True) == "torch_graph"
+    for n in (100, 512, 1024, 1025, 1461, 1462):
         assert TF.kernel_takes(fixed, n, 2, True)
-    assert TF.smem_bytes(1455, 2, 1, True) > TF.smem_bytes(1455, 2, 1, False)
-    assert TF.smem_bytes(1456, 2, 1, True) == TF.smem_bytes(1456, 2, 1, False)
+    assert TF.smem_bytes(1461, 2, 1, True) > TF.smem_bytes(1461, 2, 1, False)
+    assert TF.smem_bytes(1462, 2, 1, True) == TF.smem_bytes(1462, 2, 1, False)
 
 
 def test_tracks_off_follows_mode_and_weight():

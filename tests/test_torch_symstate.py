@@ -160,12 +160,14 @@ def test_sym_incremental_picks_the_cheaper_scheme(moves, n, incremental):
 @pytest.mark.parametrize("n,n_clr,blocks,track_off", [
     pytest.param(100, 2, 8, False, id="100-2-8"), pytest.param(512, 2, 2, False, id="512-2-2"),
     pytest.param(100, 2, 8, True, id="100-2-8-fixed_weighted"),
-    pytest.param(512, 2, 2, True, id="512-2-2-fixed_weighted")])
+    pytest.param(512, 2, 2, True, id="512-2-2-fixed_weighted"),
+    pytest.param(100, 100, 8, False, id="100-100-8")])
 def test_shared_memory_keeps_blocks_per_sm(n, n_clr, blocks, track_off):
     """At 100 objects shared memory leaves room for the 8 blocks an SM's
-    registers hold (1024 chains in one wave on 132 SMs); at 512 objects at
-    least 2 blocks fit an SM; both also with the FIXED off-limits slab
-    state (``track_off``)."""
+    registers hold (1024 chains in one wave on 132 SMs), with 2 clearances
+    and with 100 (a clearance row's partials take none); at 512 objects at
+    least 2 blocks fit an SM; also with the FIXED off-limits slab state
+    (``track_off``)."""
     for moves in (1, 64):
         per_block = TF.smem_bytes(n, n_clr, moves, track_off) + BLOCK_RESERVED_SMEM
         assert H100_SMEM_PER_SM // per_block >= blocks
